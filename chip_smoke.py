@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (sm_90a), holds each against its plain PyTorch version, serves
-smollm-360m at full width (32 layers, d_model 960, 15/5 heads, vocab 49152;
-random weights from seed 0) through ``ClientHandler`` on ``LMBackend``, and
-checks the float32 token streams of the kernel path against the plain path.
-Phases:
+with nvcc (sm_90a), holds each against its plain PyTorch version, and
+drives the port's two serving paths at full width through
+``ClientHandler`` on ``LMBackend`` with random weights from seed 0:
+smollm-360m (32 layers, d_model 960, 15/5 heads, vocab 49152) on the paged
+path, and rwkv6-7b (32 layers, d_model 4096, 64 WKV heads of 64, d_ff
+14336, vocab 65536; 7.53e9 parameters) on the contiguous cohort path; for
+each it checks the float32 token streams of the kernel path against the
+plain path.  Phases:
 
 1. device   — a CUDA device must be present; prints name and power limit;
 2. build    — one nvcc per kernel source, all started together;
@@ -16,17 +19,28 @@ Phases:
               float32 (atol 2e-5, rtol 1e-5; TF32 off) and bfloat16 (atol
               2e-2, rtol 2e-2), with edge cases (zero-context row,
               n_live == 0 row, scattered tables, softcap, sliding window,
-              per-head decode grid); CUDA-event times of kernel, plain
-              version and, where one exists, one PyTorch library call;
-4. serving  — 8 requests (prompts 16–96 tokens, two pairs sharing a
-              32-token prefix, 16 new tokens each) through the default
-              paged handler path in bfloat16, decode_window 4; every
-              request must finish its budget and every kernel must have
-              launched;
+              per-head decode grid; WKV: s0 None, one step, ragged S, N
+              16); CUDA-event times of kernel, plain version and, where one
+              exists, one PyTorch library call;
+4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
+              sharing a 32-token prefix, 16 new tokens each) through the
+              default paged handler path in bfloat16, decode_window 4;
+              every request must finish its budget and every kernel of the
+              path must have launched;
 5. parity   — the same trace in float32 with impl="cuda" and impl="torch"
               on the same weights: token streams must be identical (a first
               mismatch is accepted only as a near-tie, top-two logit gap of
-              the plain path < 1e-4).
+              the plain path < 1e-4);
+6. rwkv6    — rwkv6-7b: 8 requests (prompts 16–64 tokens, padded to 64,
+              16 new tokens each) through ``kv="contiguous"`` in bfloat16,
+              each step run once and timed after a device synchronise;
+              every request must finish its budget and the WKV kernel must
+              have launched (32 layers per cohort prefill);
+7. parity   — the same trace in float32 with impl="cuda" and impl="torch"
+              on the same weights, under phase 5's near-tie rule, over the
+              first 16 of the 32 layers at full width (at 32 layers two
+              plain evaluation orders already disagree; see
+              tools/rwkv6_parity_depth.py).
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -50,11 +64,19 @@ MAX_BATCH = 8
 NEW_TOKENS = 16
 BLOCK = 8
 CHUNK = 8
+RWKV_PROMPT_PAD = 64             # the plain WKV path needs S % 64 == 0
+RWKV_CAPACITY = RWKV_PROMPT_PAD + NEW_TOKENS
+# phase 7 holds tokens to the near-tie rule over the first 16 of the 32
+# layers: at all 32, two plain evaluation orders already disagree
+# (tools/rwkv6_parity_depth.py)
+RWKV_PARITY_LAYERS = 16
 REPLACES = {
     "paged_decode": "src/repro/kernels/flash_attention.py:337",
     "paged_prefill": "src/repro/kernels/flash_attention.py:264",
     "flash_attention": "src/repro/kernels/flash_attention.py:362",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
 }
+PHASES = 7
 
 
 def fail(msg):
@@ -241,18 +263,89 @@ def kernel_phase(torch, dev, cfg):
         bytes=byts, flops=flops,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)))
+    for r in results.values():
+        r["peak"] = peak
+    finish(results, host, main_err)
+    return results
+
+
+def finish(results, host, main_err):
+    """Bound (larger of bytes over the HBM rate and operations over the
+    peak rate of their type) and the serving-shape bf16 error per kernel;
+    logs one timing line each."""
     for name, r in results.items():
         t_bytes = r["bytes"] / H100_HBM_BW * 1e3
-        t_ops = r["flops"] / peak * 1e3
+        t_ops = r["flops"] / r["peak"] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["max_abs_err"] = main_err[(name, "bfloat16")]
         r["max_abs_err_float32"] = main_err[(name, "float32")]
+        lib = r["library_ms"]
         log(f"  time {name:16s} kernel {r['ms']:.5f} ms (host enqueue "
             f"{host[name]['ms']:.5f} ms)  plain "
             f"{r['plain_ms']:.5f} ms  library "
-            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 5)}"
+            f"{lib if lib is None else round(lib, 5)}"
             f" ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def wkv_inputs(torch, rng, b, s, h, n, dtype, dev):
+    """r, k, v ~ N(0, 1) in ``dtype``; float32 decays in (0.29, 0.99) (the
+    model computes w in float32); u, s0 ~ N(0, 1) float32."""
+    import numpy as np
+    mk = lambda *sh: torch.from_numpy(                     # noqa: E731
+        rng.standard_normal(sh).astype(np.float32)).to(dev)
+    r, k, v = (mk(b, s, h, n).to(dtype) for _ in range(3))
+    w = torch.sigmoid(mk(b, s, h, n)) * 0.7 + 0.29
+    return r, k, v, w, mk(h, n), mk(b, h, n, n)
+
+
+def wkv_phase(torch, dev, cfg):
+    """rwkv6_scan vs ``ref.rwkv6_scan_ref``: the cohort-prefill shape
+    (MAX_BATCH x RWKV_PROMPT_PAD, all heads) with and without s0, one step,
+    a ragged S and N 16; then CUDA-event times at the serving shape in
+    bf16 from a zero state, as the cohort prefill calls it."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    h, n = cfg.n_heads, cfg.head_dim
+    b, s = MAX_BATCH, RWKV_PROMPT_PAD
+    rng = np.random.default_rng(1)
+    main_err = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for bb, ss, hh, nn, with_s0 in ((b, s, h, n, True),
+                                        (b, s, h, n, False),
+                                        (2, 1, 4, n, True),
+                                        (2, 37, 4, n, True),
+                                        (3, 40, 4, 16, True)):
+            r, k, v, w, u, s0 = wkv_inputs(torch, rng, bb, ss, hh, nn, dtype,
+                                           dev)
+            y, s_final = ops.rwkv6_scan(r, k, v, w, u,
+                                        s0 if with_s0 else None)
+            init = s0 if with_s0 else torch.zeros_like(s0)
+            want_y, want_s = ref.rwkv6_scan_ref(
+                *(x.transpose(1, 2) for x in (r, k, v, w)), u, init)
+            e = compare(torch, "rwkv6_scan", y, want_y.transpose(1, 2),
+                        dtype_name)
+            compare(torch, "rwkv6_scan state", s_final, want_s, "float32")
+            if (bb, ss) == (b, s) and not with_s0:
+                main_err[("rwkv6_scan", dtype_name)] = e
+    r, k, v, w, u, _ = wkv_inputs(torch, rng, b, s, h, n, torch.bfloat16,
+                                  dev)
+    zeros = torch.zeros((b, h, n, n), dtype=torch.float32, device=dev)
+    rt = [x.transpose(1, 2) for x in (r, k, v, w)]
+    # r, k, v read and y written in bf16, w read in float32, u read, the
+    # final state written in float32 (s0 None: no state read)
+    byts = (r.numel() * (4 * r.element_size() + w.element_size())
+            + u.numel() * 4 + zeros.numel() * 4)
+    host = {}
+    results = {"rwkv6_scan": dict(
+        ms=time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w, u),
+                   host=host.setdefault("rwkv6_scan", {})),
+        plain_ms=time_ms(torch, lambda: ref.rwkv6_scan_ref(*rt, u, zeros),
+                         reps=10),
+        bytes=byts, flops=5 * b * s * h * n * n, library_ms=None,
+        peak=H100_PEAK["float32"])}
+    finish(results, host, main_err)
     return results
 
 
@@ -283,12 +376,25 @@ def trace(vocab):
     return reqs
 
 
-def serve(torch, backend, executor=None):
+def rwkv_trace(vocab):
+    """8 requests of 16-64 prompt tokens (both ends included), arriving
+    together: one cohort of MAX_BATCH rows."""
+    import numpy as np
+    from repro_torch.core.scheduler import ServeRequest
+    rng = np.random.default_rng(12)
+    lens = [16, RWKV_PROMPT_PAD] + [int(x) for x in rng.integers(17, 64, 6)]
+    return [ServeRequest(i, rng.integers(0, vocab, n, dtype=np.int32),
+                         NEW_TOKENS, arrival_t=0.0)
+            for i, n in enumerate(lens)]
+
+
+def serve(torch, backend, reqs, executor=None, **kw):
+    """Serve ``reqs`` through ``ClientHandler`` (phase 4's paged settings
+    unless ``kw`` overrides them); every request must finish its budget."""
     from repro_torch.launch.serve import ClientHandler
+    kw = {"prompt_pad": PROMPT_PAD, "decode_window": 4, **kw}
     h = ClientHandler(backend, max_batch=MAX_BATCH, max_secondaries=0,
-                      prompt_pad=PROMPT_PAD, decode_window=4,
-                      executor=executor)
-    reqs = trace(backend.cfg.vocab_size)
+                      executor=executor, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = h.run(reqs)
@@ -304,27 +410,107 @@ def serve(torch, backend, executor=None):
     return toks, rep, h, wall, reqs
 
 
+def timed_once(torch, steps):
+    """Executor running each step closure once, timed on the host clock
+    between device synchronisations; appends (closure name, seconds)."""
+    def executor(clone, fn, args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append((fn.__name__, dt))
+        return out, dt
+    return executor
+
+
 def near_tie(torch, backend, req, generated, prompt_pad):
     """Top-two logit gap of the plain path at the step that produced
-    ``generated[-1]`` (context: padded prompt + the earlier tokens)."""
+    ``generated[-1]``: prefill of the padded prompt, then one decode step
+    per earlier token (a contiguous cache; valid for every family)."""
     import numpy as np
     from repro_torch.models import model
-    ctx = np.zeros((prompt_pad,), np.int32)
-    ctx[:min(len(req.prompt), prompt_pad)] = req.prompt[:prompt_pad]
-    seq = np.concatenate([ctx, np.asarray(generated[:-1], np.int32)])
-    logits, _ = model.forward(backend.cfg, backend.params,
-                              {"tokens": backend.tensor(seq[None])},
-                              backend.ctx, "prefill")
+    cfg, params, ctx = backend.cfg, backend.params, backend.ctx
+    toks = np.zeros((1, prompt_pad), np.int32)
+    toks[0, :min(len(req.prompt), prompt_pad)] = req.prompt[:prompt_pad]
+    logits, cache = model.forward(cfg, params,
+                                  {"tokens": backend.tensor(toks)}, ctx,
+                                  "prefill", cache_capacity=backend.capacity)
+    for i, tok in enumerate(generated[:-1]):
+        pos = min(prompt_pad + i, backend.capacity - 1)
+        logits, cache = model.decode_step(cfg, params, cache,
+                                          backend.tensor([[tok]]), pos, ctx)
     top = torch.topk(logits[0].float(), 2).values
     return float(top[0] - top[1])
 
 
+def parity(torch, cfg32, params, capacity, trace_fn, prompt_pad, **kw):
+    """float32, impl="cuda" vs impl="torch" on one set of weights:
+    identical token streams, or a first mismatch at a near-tie (plain-path
+    top-two gap < 1e-4); fails otherwise."""
+    from repro_torch.launch.serve import LMBackend
+    fixed = lambda c, f, a: (f(*a), 0.05)          # noqa: E731
+    runs = {}
+    for impl in ("cuda", "torch"):
+        b = LMBackend(cfg32, capacity=capacity, params=params, device="cuda",
+                      impl=impl)
+        runs[impl] = serve(torch, b, trace_fn(cfg32.vocab_size),
+                           executor=fixed, prompt_pad=prompt_pad, **kw)
+        n = sum(len(t) for t in runs[impl][0].values())
+        log(f"  impl={impl}: wall {runs[impl][3]:.4f} s for {n} tokens "
+            f"(fixed-time executor, each step run once)")
+    got, want = runs["cuda"][0], runs["torch"][0]
+    plain = LMBackend(cfg32, capacity=capacity, params=params, device="cuda",
+                      impl="torch")
+    reqs = {r.rid: r for r in runs["torch"][4]}
+    mismatched = first_mismatches(got, want)
+    for rid, j in mismatched:
+        gap = near_tie(torch, plain, reqs[rid], want[rid][:j + 1],
+                       prompt_pad)
+        log(f"  request {rid}: first mismatch at token {j}, plain-path "
+            f"top-two gap {gap:.3e}")
+        if gap >= 1e-4:
+            fail(f"request {rid}: token streams differ at {j} "
+                 f"(gap {gap} is no near-tie)")
+    log(f"  {len(want) - len(mismatched)}/{len(want)} streams identical"
+        + (f", {len(mismatched)} near-tie(s) accepted" if mismatched
+           else ""))
+
+
+def first_mismatches(got, want):
+    """``[(rid, first differing token index)]`` of two stream dicts."""
+    return [(rid, next(i for i, (x, y) in enumerate(zip(got[rid], want[rid]))
+                       if x != y))
+            for rid in want if got[rid] != want[rid]]
+
+
+def rwkv_parity(torch, rcfg):
+    """Phase 7: parity() on the first RWKV_PARITY_LAYERS layers of a
+    full-width float32 rwkv6-7b.  Over all 32 layers this random-weight
+    model turns float32 rounding differences into different tokens
+    whichever code makes them (two plain evaluation orders disagree too):
+    ``tools/rwkv6_parity_depth.py`` measures that."""
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(rcfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(cfg32, gen, torch.device("cuda"))
+    depth = RWKV_PARITY_LAYERS
+    params["layers"] = dict(params["layers"], stack=model.tree_map(
+        lambda t: t[:depth], params["layers"]["stack"]))
+    log(f"  first {depth} of {rcfg.n_layers} layers")
+    parity(torch, dataclasses.replace(cfg32, n_layers=depth), params,
+           RWKV_CAPACITY, rwkv_trace, RWKV_PROMPT_PAD, kv="contiguous",
+           decode_window=1)
+
+
 def main():
+    import gc
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.launch.serve import LMBackend
@@ -335,12 +521,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/5 device] {kind} x{torch.cuda.device_count()} | {smi} | "
+    log(f"[1/{PHASES} device] {kind} x{torch.cuda.device_count()} | {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"[2/5 build] {len(libs)} kernels in "
+    log(f"[2/{PHASES} build] {len(libs)} kernels in "
         f"{time.perf_counter() - t0:.1f} s -> {build.build_dir()}")
     for name in libs:
         for line in (build.build_dir() / f"{name}.log").read_text() \
@@ -349,13 +535,16 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("smollm-360m")
-    log("[3/5 kernels] each kernel vs its plain version")
+    rcfg = get_config("rwkv6-7b")
+    log(f"[3/{PHASES} kernels] each kernel vs its plain version")
     results = kernel_phase(torch, dev, cfg)
+    results.update(wkv_phase(torch, dev, rcfg))
 
-    log("[4/5 serving] smollm-360m full width, bfloat16, ClientHandler")
+    log(f"[4/{PHASES} serving] smollm-360m full width, bfloat16, paged "
+        "ClientHandler")
     backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
     ops.reset_launches()
-    toks, rep, h, wall, _ = serve(torch, backend)
+    toks, rep, h, wall, _ = serve(torch, backend, trace(cfg.vocab_size))
     launches = dict(ops.launches)
     n_tok = sum(len(t) for t in toks.values())
     log(f"  {rep.summary()}")
@@ -364,45 +553,62 @@ def main():
         f"{h.prefix_hit_tokens}, launches {launches}")
     if h.prefix_hit_tokens <= 0:
         fail("no prefix hit: the trace did not exercise the prefix cache")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("paged_decode", "paged_prefill", "flash_attention"):
+        if launches[name] <= 0:
             fail(f"{name} never launched on the serving path")
     del backend
 
-    log("[5/5 parity] float32, impl=cuda vs impl=torch, same weights")
+    log(f"[5/{PHASES} parity] smollm-360m float32, impl=cuda vs impl=torch, "
+        "same weights")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(cfg32, gen, dev)
-    fixed = lambda c, f, a: (f(*a), 0.05)          # noqa: E731
-    runs = {}
-    for impl in ("cuda", "torch"):
-        b = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
-                      impl=impl)
-        runs[impl] = serve(torch, b, executor=fixed)
-        n = sum(len(t) for t in runs[impl][0].values())
-        log(f"  impl={impl}: wall {runs[impl][3]:.4f} s for {n} tokens "
-            f"(fixed-time executor, each step run once)")
-    got, want = runs["cuda"][0], runs["torch"][0]
-    mismatched = [rid for rid in want if got[rid] != want[rid]]
-    plain = LMBackend(cfg32, capacity=CAPACITY, params=params,
-                      device="cuda", impl="torch")
-    reqs = {r.rid: r for r in runs["torch"][4]}
-    for rid in mismatched:
-        j = next(i for i, (x, y) in enumerate(zip(got[rid], want[rid]))
-                 if x != y)
-        gap = near_tie(torch, plain, reqs[rid], want[rid][:j + 1],
-                       PROMPT_PAD)
-        log(f"  request {rid}: first mismatch at token {j}, plain-path "
-            f"top-two gap {gap:.3e}")
-        if gap >= 1e-4:
-            fail(f"request {rid}: token streams differ at {j} "
-                 f"(gap {gap} is no near-tie)")
-    log(f"  {len(want) - len(mismatched)}/{len(want)} streams identical"
-        + (f", {len(mismatched)} near-tie(s) accepted" if mismatched
-           else ""))
+    params = model.init(cfg32, torch.Generator(device=dev).manual_seed(0),
+                        dev)
+    parity(torch, cfg32, params, CAPACITY, trace, PROMPT_PAD)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    log(f"[6/{PHASES} rwkv6] rwkv6-7b full width, bfloat16, "
+        "ClientHandler(kv='contiguous')")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    backend = LMBackend(rcfg, capacity=RWKV_CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    n_par = model.n_params(rcfg)
+    log(f"  {n_par} parameters, {n_par * 2 / 1e9:.2f} GB of bf16 weights "
+        f"drawn in {time.perf_counter() - t0:.2f} s")
+    steps = []
+    ops.reset_launches()
+    toks, rep, _, wall, _ = serve(
+        torch, backend, rwkv_trace(rcfg.vocab_size),
+        executor=timed_once(torch, steps), kv="contiguous", decode_window=1,
+        prompt_pad=RWKV_PROMPT_PAD)
+    rwkv_launches = dict(ops.launches)
+    n_tok = sum(len(t) for t in toks.values())
+    pre = [dt for name, dt in steps if name == "prefill"]
+    dec = [dt for name, dt in steps if name == "decode"]
+    log(f"  {rep.summary()}")
+    log(f"  wall {wall:.4f} s for {n_tok} tokens ({n_tok / wall:.3f} tok/s, "
+        f"each step run once); cohort prefill {len(pre)} x "
+        f"{1e3 * float(np.mean(pre)):.3f} ms, decode steps {len(dec)} "
+        f"(median {1e3 * float(np.median(dec)):.3f} ms, min "
+        f"{1e3 * min(dec):.3f} ms); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{rwkv_launches}")
+    if rwkv_launches["rwkv6_scan"] <= 0:
+        fail("rwkv6_scan never launched on the rwkv6 serving path")
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[7/{PHASES} parity] rwkv6-7b float32 (full width), impl=cuda vs "
+        "impl=torch, same weights")
+    rwkv_parity(torch, rcfg)
+
+    launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
     kernels = []
-    for name in ("paged_decode", "paged_prefill", "flash_attention"):
+    for name in ("paged_decode", "paged_prefill", "flash_attention",
+                 "rwkv6_scan"):
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda",

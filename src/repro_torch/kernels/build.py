@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
-KERNELS = ("paged_decode", "paged_prefill", "flash_attention")
+KERNELS = ("paged_decode", "paged_prefill", "flash_attention", "rwkv6_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +34,7 @@ SIGNATURES = {
     "paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8
     + [_F, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 10 + [_F, _F, _P],
+    "rwkv6_scan": [_I] + [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

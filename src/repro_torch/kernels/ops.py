@@ -1,4 +1,4 @@
-"""Model-layout wrappers for the hand-written CUDA attention kernels.
+"""Model-layout wrappers for the hand-written CUDA kernels.
 
 Every wrapper checks its inputs (device, dtype, shape, contiguity) and then
 dispatches on where the tensors live: on a CUDA tensor it launches the
@@ -6,7 +6,8 @@ kernel from ``csrc/`` (building it on first use) and raises if the build or
 the launch fails; on a CPU tensor it runs the kernel's plain version from
 :mod:`repro_torch.kernels.ref`; any other device raises.  The kernels read
 and write the model's own layouts ((B, S, H, D) activations, (N, bs, Hkv, D)
-pools), so no wrapper transposes or pads on the card.
+pools, (B, H, N, N) recurrent states), so no wrapper transposes or pads on
+the card.
 
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
@@ -25,7 +26,10 @@ _ACC = 16
 _MAX_SMEM = 232448            # bytes a Hopper block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0}
+_WKV_MAX_N = 64              # state columns one rwkv6_scan thread holds
+
+launches = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0,
+            "rwkv6_scan": 0}
 
 
 def reset_launches() -> None:
@@ -196,3 +200,56 @@ def flash_attention(q, k, v, *, causal: bool = True,
                 int(causal), int(window or 0), d ** -0.5,
                 float(softcap or 0.0), device=q.device)
     return out
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None):
+    """RWKV-6 WKV recurrence, model layout.
+
+    r, k, v: (B, S, H, N) float32 or bfloat16; w: (B, S, H, N) float32
+    decays in (0, 1] (the model computes them in float32); u: (H, N)
+    float32; s0: (B, H, N, N) float32, or None for a zero state.  Any
+    S >= 0 (no padding).  Returns (y (B, S, H, N) in r.dtype, s_final
+    (B, H, N, N) float32).
+    """
+    name = "rwkv6_scan"
+    b, s, h, n = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
+            or tuple(u.shape) != (h, n)
+            or (s0 is not None and tuple(s0.shape) != (b, h, n, n))):
+        raise ValueError(f"{name}: bad shapes r{tuple(r.shape)} "
+                         f"w{tuple(w.shape)} u{tuple(u.shape)} "
+                         f"s0{None if s0 is None else tuple(s0.shape)}")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"{name}: r, k, v must share one dtype of "
+                        f"float32/bfloat16: {r.dtype} {k.dtype} {v.dtype}")
+    for t in (w, u) + (() if s0 is None else (s0,)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: w, u and s0 must be float32, got "
+                            f"{t.dtype}")
+    dev = r.device
+    for t in (k, v, w, u) + (() if s0 is None else (s0,)):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if not r.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if not 1 <= n <= _WKV_MAX_N:
+        raise ValueError(f"{name}: head_dim {n} outside 1..{_WKV_MAX_N}")
+    if dev.type == "cpu":
+        if s0 is None:
+            s0 = torch.zeros((b, h, n, n), dtype=torch.float32)
+        y, s_final = ref.rwkv6_scan_ref(r.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), w.transpose(1, 2),
+                                        u, s0)
+        return y.transpose(1, 2), s_final
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: device {dev} unsupported")
+    y = torch.empty_like(r)
+    s_final = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
+    if b and h:
+        _launch(name, _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(),
+                v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                None if s0 is None else s0.data_ptr(), y.data_ptr(),
+                s_final.data_ptr(), b, s, h, n, device=dev)
+    return y, s_final

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three attention kernels, plus ``copy_blocks``.
+"""Plain PyTorch versions of the hand-written kernels, plus ``copy_blocks``.
 
 Deliberately naive, straight-line implementations (scores materialized,
 KV gathered through the block table) with the reference oracles' exact
@@ -96,6 +96,26 @@ def paged_prefill_ref(q, k_pool, v_pool, block_tables, pos0, n_live, *,
     scores = scores.masked_fill(~ok[:, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1) * ok[:, None]
     return torch.einsum("bhck,bhkd->bhcd", probs, vv).to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0):
+    """Sequential WKV. r,k,v,w: (B,H,S,N); u: (H,N); s0: (B,H,N,N) fp32.
+
+    Per step: ``y_t = r_t^T (S + diag(u) k_t v_t^T)``, then
+    ``S <- diag(w_t) S + k_t v_t^T``, all in float32.  Returns (y
+    (B,H,S,N) in r.dtype, s_final (B,H,N,N) fp32)."""
+    s = s0.float()
+    uf = u.float()
+    ys = []
+    for t in range(r.shape[2]):
+        r_t, k_t, v_t, w_t = (x[:, :, t].float() for x in (r, k, v, w))
+        bonus = torch.einsum("bhk,hk,bhk->bh", r_t, uf, k_t)
+        ys.append(torch.einsum("bhk,bhkn->bhn", r_t, s)
+                  + bonus[..., None] * v_t)
+        s = w_t[..., None] * s + k_t[..., None] * v_t[..., None, :]
+    if not ys:
+        return torch.empty_like(r), s.clone()
+    return torch.stack(ys, dim=2).to(r.dtype), s
 
 
 def copy_blocks(leaf, src, dst, *, axis: int = 0):

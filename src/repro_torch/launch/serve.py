@@ -15,16 +15,23 @@ kernel) when mixed dispatch is on — and requests retire at step
 granularity.  A :class:`~repro_torch.core.scheduler.FleetAutoscaler`
 provisions and TTL-pauses secondaries on the clone pool.
 
-This slice ports the default paged path.  The contiguous cohort mode,
-speculative decoding, disaggregated prefill, fault injection and hedging,
+``kv="contiguous"`` is the cohort mode instead: requests admitted at one
+step boundary form a :class:`_Cohort` that prefills once
+(``model.forward``) and decodes in lockstep on a contiguous cache at one
+shared cursor, one token per dispatch; rows retire at step granularity and
+late arrivals wait for a free clone.  It is the mode that serves
+recurrent-state models (RWKV-6): the paged path raises for them (ROADMAP
+Queue 3).
+
+Speculative decoding, disaggregated prefill, fault injection and hedging,
 the SLO gateway, non-ledger routing and the legacy ``ServingEngine`` raise
 ``NotImplementedError`` naming their ROADMAP item.
 
-The KV pool is updated in place.  Every step closure is idempotent (each
-write is a function of the step's inputs, attention writes before it
-reads, and no input other than the pool is mutated), so an executor may
-re-run a closure, as :class:`~repro_torch.core.venues.Venue` does to
-stabilise its timing.
+KV caches are updated in place, recurrent state is replaced.  Every step
+closure is idempotent (each write is a function of the step's inputs,
+attention writes before it reads, and no input other than the KV cache is
+mutated), so an executor may re-run a closure, as
+:class:`~repro_torch.core.venues.Venue` does to stabilise its timing.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from repro_torch.core.scheduler import (AdmissionQueue, FleetAutoscaler,
                                         PlacementEngine, ServeCompletion,
                                         ServeRequest, SlotLedger,
                                         poisson_arrivals)
-from repro_torch.core.venues import Venue, transfer_time
+from repro_torch.core.venues import Venue, pytree_bytes, transfer_time
 from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks, model
 from repro_torch.models.context import RunContext
@@ -63,14 +70,15 @@ def pow2_bucket(n: int) -> int:
 
 
 class LMBackend:
-    """Model binding: parameters on a device + the paged step functions.
+    """Model binding: parameters on a device + the contiguous and paged
+    step functions.
 
     ``params`` accepts bridged weights (``models.weights.from_jax``);
     without it parameters are drawn from a ``torch.Generator`` seeded 0.
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``impl`` defaults to the CUDA kernels on a card and the plain path
-    elsewhere.  Configurations outside the dense full-attention family
-    raise ``NotImplementedError``.
+    elsewhere.  Configurations outside the dense full-attention and RWKV-6
+    families raise ``NotImplementedError``.
     """
 
     def __init__(self, cfg, capacity: int = 256, *,
@@ -92,19 +100,41 @@ class LMBackend:
         return model.supports_chunked_prefill(self.cfg)
 
     def cache_mem_bytes(self, batch: int) -> int:
-        """Bytes of a contiguous (batch, capacity) KV cache, with the same
-        per-leaf framing tax as ``venues.pytree_bytes``."""
-        cfg = self.cfg
-        per_layer = (2 * batch * self.capacity * cfg.n_kv_heads
-                     * cfg.head_dim * model.dtype_of(cfg).itemsize)
-        pat, _, rest = model.grouping(cfg)
-        return per_layer * cfg.n_layers + 64 * 2 * (len(pat) + len(rest))
+        """Bytes of a contiguous (batch, capacity) cache (KV and state
+        leaves, ``venues.pytree_bytes`` framing; shapes only)."""
+        return pytree_bytes(model.init_cache(self.cfg, batch, self.capacity,
+                                             device=torch.device("meta")))
 
     def tensor(self, x) -> torch.Tensor:
         """A host array as an int32 tensor on the backend's device (a
         copy: later host mutation never reaches a dispatched step)."""
         return torch.tensor(np.asarray(x), dtype=torch.int32,
                             device=self.device)
+
+    # ----------------------------------------------------------- contiguous
+    def prefill(self, params, tokens):
+        """Cohort prefill: ``tokens`` (B, P) -> (greedy first tokens (B,)
+        int32, contiguous cache at ``capacity``)."""
+        logits, cache = model.forward(self.cfg, params, {"tokens": tokens},
+                                      self.ctx, "prefill",
+                                      cache_capacity=self.capacity)
+        return torch.argmax(logits, -1).to(torch.int32), cache
+
+    def decode(self, params, cache, tokens, pos: int):
+        """One lockstep decode step of a cohort at the shared cursor
+        ``pos``: tokens (B, 1) -> (next tokens (B,) int32, cache)."""
+        logits, cache = model.decode_step(self.cfg, params, cache, tokens,
+                                          pos, self.ctx)
+        return torch.argmax(logits, -1).to(torch.int32), cache
+
+    def cache_take(self, cache, keep_idx) -> Dict:
+        """Shrink a cohort cache to the surviving batch rows (new
+        tensors: the cache a dispatched step read stays intact)."""
+        idx = torch.as_tensor(np.asarray(keep_idx, np.int64),
+                              device=self.device)
+        b_ax, _ = model.cache_axes(self.cfg)
+        return model.tree_map(lambda leaf, ax: leaf.index_select(ax, idx),
+                              cache, b_ax)
 
     # ---------------------------------------------------------------- paged
     def init_paged_pool(self, max_slots: int, num_blocks: int,
@@ -622,6 +652,27 @@ class _SlotEngine:
 
 
 @dataclasses.dataclass
+class _Cohort:
+    """Requests admitted at one step boundary, decoding in lockstep.
+
+    The *contiguous* (``kv="contiguous"``) batching unit: one shared
+    position cursor, so only requests admitted at the same step boundary
+    fuse, and late arrivals wait for a clone to free up.
+    """
+
+    reqs: List[ServeRequest]
+    clone: object
+    plen: int
+    outs: List[List[int]] = dataclasses.field(default_factory=list)
+    first_token_t: List[float] = dataclasses.field(default_factory=list)
+    token_ts: List[List[float]] = dataclasses.field(default_factory=list)
+    cache: object = None
+    tok: object = None
+    step: int = 0
+    phase: str = "prefill"
+
+
+@dataclasses.dataclass
 class ServeReport:
     """One ``ClientHandler.run`` outcome: latency, elasticity, KV economy.
 
@@ -680,8 +731,10 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 class ClientHandler:
     """Event-driven continuous-batching server on an elastic clone pool:
-    each clone runs a :class:`_SlotEngine` — ``max_batch`` slots over a
-    :class:`KVBlockPool`, per-slot cursors, mid-flight admission."""
+    with ``kv="paged"`` each clone runs a :class:`_SlotEngine` —
+    ``max_batch`` slots over a :class:`KVBlockPool`, per-slot cursors,
+    mid-flight admission; with ``kv="contiguous"`` each clone decodes one
+    :class:`_Cohort` in lockstep."""
 
     def __init__(self, backend, *, link: str = "wifi-local",
                  clone_type: str = "main", max_batch: int = 4,
@@ -707,9 +760,7 @@ class ClientHandler:
                  speculative: bool = False, disagg: bool = False,
                  faults=None, hedge_factor: float = 0.0, gateway=None,
                  routing: str = "ledger"):
-        if kv == "contiguous":
-            raise _later("kv='contiguous'", "contiguous mode")
-        if kv != "paged":
+        if kv not in ("paged", "contiguous"):
             raise ValueError(f"kv must be 'paged' or 'contiguous': {kv!r}")
         if speculative:
             raise _later("speculative decoding", "verify/spec + draft_loop")
@@ -724,15 +775,24 @@ class ClientHandler:
             raise _later(f"routing={routing!r}", "disagg + int8 pair")
         if decode_window < 1:
             raise ValueError(f"decode_window must be >= 1: {decode_window}")
-        chunk_ok = bool(getattr(backend, "supports_chunked", False))
+        if decode_window > 1 and kv != "paged":
+            raise ValueError("decode_window > 1 requires kv='paged' (the "
+                             "contiguous cohort path decodes per token)")
+        if kv == "paged" and model.has_state_rows(backend.cfg):
+            raise NotImplementedError(
+                f"{backend.cfg.name}: recurrent state is not served from the "
+                "paged pool (the reference's paged path corrupts it, "
+                "ROADMAP Queue 3); use kv='contiguous'")
+        chunk_ok = kv == "paged" and bool(getattr(backend, "supports_chunked",
+                                                  False))
         if prefill_chunk is None:
             prefill_chunk = 8 if chunk_ok else 0
         elif prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0: {prefill_chunk}")
         elif prefill_chunk > 0 and not chunk_ok:
-            raise ValueError("prefill_chunk > 0 requires a backend with "
-                             "chunked-prefill support (all-attention, "
-                             "windowless layers)")
+            raise ValueError("prefill_chunk > 0 requires kv='paged' and a "
+                             "backend with chunked-prefill support "
+                             "(all-attention, windowless layers)")
         if mixed_dispatch is None:
             mixed_dispatch = prefill_chunk > 0
         elif mixed_dispatch and prefill_chunk == 0:
@@ -945,6 +1005,78 @@ class ClientHandler:
             t = unit.clone.ctype.name
             out[t] = out.get(t, 0) + 1
         return out
+
+    # ---------------------------------------------------------------- cohort
+    def _start_cohort(self, batch: List[ServeRequest], clone):
+        """Prefill a new cohort on ``clone``: prompts zero-padded (or cut)
+        to ``prompt_pad``, one batched ``model.forward``."""
+        plen = self.prompt_pad
+        toks = np.zeros((len(batch), plen), np.int32)
+        for i, r in enumerate(batch):
+            toks[i, :min(len(r.prompt), plen)] = r.prompt[:plen]
+        cohort = _Cohort(reqs=batch, clone=clone, plen=plen,
+                         outs=[[] for _ in batch],
+                         first_token_t=[0.0] * len(batch),
+                         token_ts=[[] for _ in batch])
+        clone.busy = True
+        delay = (self.autoscaler.clone_ready_delay(clone, self.clock.now())
+                 + self._net_s(toks.nbytes))
+        task = self.dispatcher.submit(
+            clone, self.backend.prefill,
+            (self.backend.params, self.backend.tensor(toks)),
+            executor=self.executor, extra_delay=delay, label="prefill")
+        self._charge(clone, task.venue_seconds)
+        return task, cohort
+
+    def _submit_decode(self, cohort: _Cohort):
+        """One lockstep decode step at the cohort's cursor (pinned at
+        ``capacity - 1``)."""
+        pos = min(cohort.plen + cohort.step, self.backend.capacity - 1)
+        written = len(cohort.reqs) * min(cohort.plen + cohort.step + 1,
+                                         self.backend.capacity)
+        self.kv_samples.append((written,
+                                len(cohort.reqs) * self.backend.capacity))
+        task = self.dispatcher.submit(
+            cohort.clone, self.backend.decode,
+            (self.backend.params, cohort.cache, cohort.tok, pos),
+            executor=self.executor,
+            extra_delay=self._net_s(len(cohort.reqs) * 8), label="decode")
+        self._charge(cohort.clone, task.venue_seconds)
+        return task
+
+    def _retire(self, cohort: _Cohort, completions: List[ServeCompletion]
+                ) -> bool:
+        """Emit current tokens; drop finished rows.  True while alive."""
+        now = self.clock.now()
+        tok = cohort.tok[:, 0].cpu().numpy()
+        keep = []
+        for i, r in enumerate(cohort.reqs):
+            cohort.outs[i].append(int(tok[i]))
+            cohort.token_ts[i].append(now)
+            if len(cohort.outs[i]) == 1:
+                cohort.first_token_t[i] = now
+            if len(cohort.outs[i]) >= r.max_new_tokens:
+                self.tokens_emitted += len(cohort.outs[i])
+                completions.append(ServeCompletion(
+                    r.rid, cohort.outs[i], r.arrival_t,
+                    cohort.first_token_t[i], now, cohort.clone.spec.name,
+                    tenant=r.tenant, slo=r.slo, deadline_s=r.deadline_s,
+                    token_ts=cohort.token_ts[i]))
+                t = cohort.clone.ctype.name
+                self.fleet_mix[t] = self.fleet_mix.get(t, 0) + 1
+            else:
+                keep.append(i)
+        if not keep:
+            self.pool.release([cohort.clone])
+            return False
+        if len(keep) < len(cohort.reqs):      # leave at step granularity
+            cohort.reqs = [cohort.reqs[i] for i in keep]
+            cohort.outs = [cohort.outs[i] for i in keep]
+            cohort.first_token_t = [cohort.first_token_t[i] for i in keep]
+            cohort.token_ts = [cohort.token_ts[i] for i in keep]
+            cohort.tok = cohort.tok[self.backend.tensor(keep).long()]
+            cohort.cache = self.backend.cache_take(cohort.cache, keep)
+        return True
 
     # ------------------------------------------------------------- slots
     def _start_engine(self, clone) -> _SlotEngine:
@@ -1234,8 +1366,9 @@ class ClientHandler:
         """
         reqs = sorted(requests, key=lambda r: r.arrival_t)
         t_start = self.clock.now()
+        paged = self.kv_mode == "paged"
         i = 0
-        inflight: Dict[object, _SlotEngine] = {}
+        inflight: Dict[object, object] = {}     # task -> engine or cohort
         engines: Dict[int, _SlotEngine] = {}
         completions: List[ServeCompletion] = []
         while True:
@@ -1244,7 +1377,7 @@ class ClientHandler:
             while i < len(reqs) and reqs[i].arrival_t <= now + 1e-12:
                 self.queue.offer(reqs[i], now)
                 i += 1
-            if engines:
+            if paged and engines:
                 for key, eng in engines.items():
                     self.ledger.update(key, eng.kv.free_slots)
                 # admit via on_assign so each fits() check sees the block
@@ -1267,6 +1400,21 @@ class ClientHandler:
                         break
                 if clone is None:
                     break
+                if not paged:
+                    # the cohort seeds with the picked request and fills
+                    # with band-compatible requests in FIFO order
+                    batch = []
+                    while len(batch) < self.max_batch:
+                        req = self.queue.take_where(
+                            lambda r: r is picked or self._in_band(r,
+                                                                   clone))
+                        if req is None:
+                            break
+                        batch.append(req)
+                    task, cohort = self._start_cohort(batch, clone)
+                    inflight[task] = cohort
+                    self._band_cache.clear()
+                    continue
                 engine = self._start_engine(clone)
 
                 def fill(r, picked=picked, engine=engine):
@@ -1306,6 +1454,17 @@ class ClientHandler:
                 for task in self.dispatcher.wait_any(list(inflight)):
                     unit = inflight.pop(task, None)
                     if unit is None:
+                        continue
+                    if not paged:
+                        cohort = unit
+                        tok, cohort.cache = task.value
+                        cohort.tok = tok[:, None]
+                        if cohort.phase == "prefill":
+                            cohort.phase = "decode"
+                        else:
+                            cohort.step += 1
+                        if self._retire(cohort, completions):
+                            inflight[self._submit_decode(cohort)] = cohort
                         continue
                     unit.main_inflight = False
                     if self._engine_step_done(unit, task, completions):
@@ -1377,6 +1536,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="serve through the event-driven ClientHandler")
     ap.add_argument("--rate", type=float, default=4.0,
                     help="Poisson offered load (req/s) for --handler")
+    ap.add_argument("--kv", choices=["paged", "contiguous"], default="paged",
+                    help="KV cache mode for --handler")
     ap.add_argument("--window", type=int, default=1,
                     help="decode window: tokens fused per device dispatch")
     ap.add_argument("--device", default=None,
@@ -1388,7 +1549,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                                   "ServingEngine); use --handler")
     cfg = reduced_config(get_config(args.arch))
     backend = LMBackend(cfg, capacity=64, device=args.device)
-    handler = ClientHandler(backend, max_batch=args.batch,
+    handler = ClientHandler(backend, max_batch=args.batch, kv=args.kv,
                             decode_window=args.window)
     reqs = poisson_arrivals(args.rate, args.requests,
                             prompt_len=8, vocab=cfg.vocab_size,

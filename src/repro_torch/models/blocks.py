@@ -1,13 +1,15 @@
-"""Residual attention blocks: norm + GQA attention (+ paged KV) + norm + MLP.
+"""Residual blocks: attention (+ paged or contiguous KV) or RWKV-6, each
+with norm + feed-forward.
 
-This slice covers the dense, full-attention family.  Recurrent kinds
-(RG-LRU, RWKV), MoE feed-forwards and sliding windows raise
+This slice covers the dense full-attention family and RWKV-6.  RG-LRU
+blocks, sliding windows, MoE feed-forwards and modality frontends raise
 ``NotImplementedError`` naming their ROADMAP item.
 
-The paged KV pool is updated **in place**: every write is a function of the
+KV caches are updated **in place**: every write is a function of the
 step's inputs only (positions, block tables, the tokens' K/V), and
 attention always writes before it reads, so re-running a step on the same
-inputs leaves the same pool — the serving executors rely on that.
+inputs leaves the same cache — the serving executors rely on that.
+Recurrent state is replaced, never written in place, for the same reason.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import rwkv6
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import apply_norm, apply_rope, attention_xla, mlp
 from repro_torch.models.spec import ParamSpec
@@ -25,20 +28,20 @@ from repro_torch.models.spec import ParamSpec
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations later slices of the port cover."""
-    if any(k != "attn" for k in cfg.layer_kinds()):
+    if "rglru" in cfg.layer_kinds():
         raise NotImplementedError(
-            f"{cfg.name}: recurrent blocks are ported later "
-            "(ROADMAP Queue 1 item 9, recurrent and windowed families)")
+            f"{cfg.name}: RG-LRU blocks are ported later (ROADMAP Queue 1 "
+            "item 6, the rglru/recurrentgemma half)")
     if cfg.window is not None:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is ported later "
-            "(ROADMAP Queue 1 item 9, recurrent and windowed families)")
+            "(ROADMAP Queue 1 item 6, ring-cache decode)")
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: MoE is ported later "
-                                  "(ROADMAP Queue 1 item 10, MoE)")
+                                  "(ROADMAP Queue 1 item 7, MoE)")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are "
-                                  "ported later (ROADMAP Queue 1 item 11)")
+                                  "ported later (ROADMAP Queue 1 item 8)")
 
 
 # --------------------------------------------------------------------------- #
@@ -79,8 +82,16 @@ def attn_specs(cfg: ModelConfig):
 
 def block_specs(cfg: ModelConfig, kind: str):
     check_supported(cfg)
-    return {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg),
-            "attn": attn_specs(cfg), "ffn": mlp_specs(cfg)}
+    sp = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg)}
+    if kind == "attn":
+        sp["attn"] = attn_specs(cfg)
+        sp["ffn"] = mlp_specs(cfg)
+    elif kind == "rwkv":
+        sp["tm"] = rwkv6.rwkv_time_specs(cfg)
+        sp["cm"] = rwkv6.rwkv_channel_specs(cfg)
+    else:
+        raise ValueError(kind)
+    return sp
 
 
 # --------------------------------------------------------------------------- #
@@ -116,15 +127,24 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     use_kernels = ctx.impl == "cuda"
 
     new_cache = None
-    if mode == "decode":
+    if mode == "decode" and block_tables is None:
+        # Contiguous cohort decode: leaves are (B, capacity, Hkv, D), every
+        # row at the one cursor ``pos`` (an int); the write pins at
+        # capacity - 1 and attention runs over every cell, causal from pos
+        # (the reference without its sliding-window ring).
+        ck, cv = cache["k"], cache["v"]
+        slot = min(int(pos), ck.shape[1] - 1)
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        out = attention_xla(q, ck, cv, causal=True, softcap=softcap,
+                            q_offset=int(pos))
+        new_cache = cache
+    elif mode == "decode":
         # Paged decode: the cache leaves are (N, bs, Hkv, D) block pools
         # shared by every slot; row i writes its token at its own cursor
         # pos[i] through its table row.  Inactive slots carry an all-zero
         # table row, so their writes land in block 0 (the trash block);
         # several rows may write there — harmless, never read unmasked.
-        if block_tables is None:
-            raise NotImplementedError("contiguous KV decode is ported later "
-                                      "(ROADMAP Queue 1, contiguous mode)")
         ck, cv = cache["k"], cache["v"]
         bsz = x.shape[0]
         rows = torch.arange(bsz, device=x.device)
@@ -202,13 +222,40 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                 ctx: RunContext, rope, cache: Optional[dict], mode: str,
                 pos, cache_capacity: int = 0,
                 block_tables=None, block_size: int = 0):
-    """Returns (x, new_cache).  Entry points reject non-attention kinds
+    """Returns (x, new_cache).  Entry points reject unported kinds
     (``check_supported``) before any block runs."""
     h = apply_norm(x, params["norm1"], cfg.norm_type)
-    mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
-                                mode, pos, cache_capacity, block_tables,
-                                block_size)
+    if kind == "attn":
+        mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
+                                    mode, pos, cache_capacity, block_tables,
+                                    block_size)
+    elif kind == "rwkv":
+        mix, tm_cache = rwkv6.rwkv_time_apply(
+            params["tm"], h, cfg, ctx,
+            cache["tm"] if cache is not None else None, mode)
+    else:
+        raise ValueError(kind)
     x = x + mix
     h2 = apply_norm(x, params["norm2"], cfg.norm_type)
-    x = x + mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
-    return x, new_cache
+    if kind == "rwkv":
+        ffn, cm_cache = rwkv6.rwkv_channel_apply(
+            params["cm"], h2, cfg,
+            cache["cm"] if cache is not None else None, mode)
+        new_cache = ({"tm": tm_cache, "cm": cm_cache}
+                     if tm_cache is not None else None)
+    else:
+        ffn = mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
+    return x + ffn, new_cache
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int,
+                     dtype: torch.dtype, device=None) -> dict:
+    """Zero contiguous cache for one block: (batch, capacity, Hkv, D) K/V
+    for attention, the float32 state rows for RWKV."""
+    if kind == "attn":
+        shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rwkv":
+        return rwkv6.init_rwkv_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)

@@ -1,14 +1,18 @@
-"""Unified model: specs, init, prefill forward, paged decode and prefill loops.
+"""Unified model: specs, init, prefill forward, decode step, paged loops.
 
 Parameters are a nested dict of tensors with exactly the reference's key
 paths and shapes (``embed``, ``final_norm``, ``layers/stack/b{i}`` stacked
 on a leading group axis, ``layers/rest/r{i}``, ``head``); a layer reads its
 slice ``w[i]`` of a stacked leaf.  Each reference ``lax.scan`` becomes a
-Python loop.  The paged KV cache is a tree of block pools updated in place.
+Python loop.  Caches are trees of the same grouping: attention K/V leaves
+(contiguous ``(B, capacity, Hkv, D)`` rows or paged block pools) are
+updated in place; recurrent state leaves (no capacity axis) are replaced
+by each step.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -101,24 +105,74 @@ def layers(cfg: ModelConfig, params: Dict, cache: Optional[Dict]
 # --------------------------------------------------------------------------- #
 # Cache
 # --------------------------------------------------------------------------- #
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _tree_leaves(tree):
+    """Leaves of a nested dict in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               dtype: Optional[torch.dtype] = None,
+               device: Optional[torch.device] = None) -> Dict:
+    """Zero contiguous decode cache, stacked to match the layer grouping:
+    attention leaves (layers, batch, capacity, Hkv, D), RWKV state leaves
+    (layers, batch, ...) in float32."""
+    blocks.check_supported(cfg)
+    dtype = dtype or dtype_of(cfg)
+    pat, n_groups, rest = grouping(cfg)
+
+    def stacked(kind):
+        one = blocks.init_block_cache(cfg, kind, batch, capacity, dtype,
+                                      device)
+        return tree_map(lambda a: torch.zeros((n_groups,) + a.shape,
+                                              dtype=a.dtype, device=device),
+                        one)
+
+    return {
+        "stack": {f"b{i}": stacked(kind) for i, kind in enumerate(pat)},
+        "rest": {f"r{i}": blocks.init_block_cache(cfg, kind, batch, capacity,
+                                                  dtype, device)
+                 for i, kind in enumerate(rest)},
+    }
+
+
+@functools.lru_cache(maxsize=None)
 def cache_axes(cfg: ModelConfig):
-    """(batch_axis, capacity_axis) trees matching the cache layout: stacked
-    leaves are (layers, batch/blocks, capacity/block_size, Hkv, D), rest
-    leaves drop the layer axis.  Every leaf of this slice is attention KV."""
-    pat, _, rest = grouping(cfg)
-    b = {"stack": {f"b{i}": {"k": 1, "v": 1} for i in range(len(pat))},
-         "rest": {f"r{i}": {"k": 0, "v": 0} for i in range(len(rest))}}
-    c = {"stack": {f"b{i}": {"k": 2, "v": 2} for i in range(len(pat))},
-         "rest": {f"r{i}": {"k": 1, "v": 1} for i in range(len(rest))}}
-    return b, c
+    """Locate each cache leaf's (batch_axis, capacity_axis) by shape diffing.
+
+    Returns two trees matching :func:`init_cache`'s structure: the axis that
+    scales with batch, and the axis that scales with capacity (``None`` for
+    per-row state leaves such as recurrent states, which have no sequence
+    storage).  Shapes come from meta tensors: nothing is allocated.
+    """
+    def diff_axis(x, y):
+        d = [i for i, (p, q) in enumerate(zip(x.shape, y.shape)) if p != q]
+        return d[0] if d else None
+
+    meta = torch.device("meta")
+    b1, b2 = (init_cache(cfg, n, 16, device=meta) for n in (1, 2))
+    c1, c2 = (init_cache(cfg, 1, n, device=meta) for n in (8, 16))
+    return tree_map(diff_axis, b1, b2), tree_map(diff_axis, c1, c2)
 
 
 def cache_leaves(cfg: ModelConfig, cache: Dict):
-    """``[(leaf, batch_axis)]`` over every KV tensor of a cache tree."""
-    b_ax, _ = cache_axes(cfg)
-    return [(cache[grp][key][kv], b_ax[grp][key][kv])
-            for grp in ("stack", "rest") for key in cache[grp]
-            for kv in ("k", "v")]
+    """``[(leaf, batch_axis)]`` over every tensor (KV or state) of a cache
+    tree, in sorted key order."""
+    return list(zip(_tree_leaves(cache), _tree_leaves(cache_axes(cfg)[0])))
+
+
+def has_state_rows(cfg: ModelConfig) -> bool:
+    """Whether any cache leaf is a per-row state (no capacity axis)."""
+    return any(ax is None for ax in _tree_leaves(cache_axes(cfg)[1]))
 
 
 def init_paged_cache(cfg: ModelConfig, max_slots: int, num_blocks: int,
@@ -127,29 +181,25 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_blocks: int,
     """Zero paged KV pool: every attention leaf is a (num_blocks,
     block_size, Hkv, D) block pool (stacked per group).  Block 0 is the
     trash block inactive slots write into; allocators never hand it out.
-    ``max_slots`` sizes per-slot state rows, which attention-only
-    configurations do not have."""
-    blocks.check_supported(cfg)
-    dtype = dtype or dtype_of(cfg)
-    pat, n_groups, rest = grouping(cfg)
-    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-
-    def kv(lead):
-        return {"k": torch.zeros(lead + shape, dtype=dtype, device=device),
-                "v": torch.zeros(lead + shape, dtype=dtype, device=device)}
-
-    return {"stack": {f"b{i}": kv((n_groups,)) for i in range(len(pat))},
-            "rest": {f"r{i}": kv(()) for i in range(len(rest))}}
+    ``max_slots`` would size per-slot state rows: configurations with
+    recurrent state are not served paged (the reference's paged path
+    corrupts their state; ROADMAP Queue 3)."""
+    if has_state_rows(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent state rows are not served from the "
+            "paged pool (the reference's paged path corrupts them, ROADMAP "
+            "Queue 3); use kv='contiguous'")
+    return init_cache(cfg, num_blocks, block_size, dtype, device)
 
 
 def _stack_caches(cfg: ModelConfig, per_layer):
-    """Per-layer {"k","v"} caches in depth order -> the stacked cache tree."""
+    """Per-layer cache trees in depth order -> the stacked cache tree."""
     pat, n_groups, rest = grouping(cfg)
     out = {"stack": {}, "rest": {}}
     for j in range(len(pat)):
         mine = per_layer[j:n_groups * len(pat):len(pat)]
-        out["stack"][f"b{j}"] = {kk: torch.stack([c[kk] for c in mine])
-                                 for kk in ("k", "v")}
+        out["stack"][f"b{j}"] = tree_map(lambda *xs: torch.stack(xs),
+                                         *mine)
     for j in range(len(rest)):
         out["rest"][f"r{j}"] = per_layer[n_groups * len(pat) + j]
     return out
@@ -206,10 +256,11 @@ def _run_layers(cfg, params, x, ctx, rope, cache, mode, pos,
 def forward(cfg: ModelConfig, params: Dict, batch: Dict, ctx: RunContext,
             mode: str = "prefill", cache_capacity: int = 0):
     """mode="prefill" -> (last_logits (B, V), cache) with a contiguous
-    (layers, B, capacity, Hkv, D) cache tree.  Training is ported later."""
+    cache tree (the layout of :func:`init_cache`; K/V padded to
+    ``cache_capacity``).  Training is ported later."""
     if mode != "prefill":
         raise NotImplementedError("training forward is ported later "
-                                  "(ROADMAP Queue 1 item 12, training)")
+                                  "(ROADMAP Queue 1 item 9, training)")
     x, positions, _ = embed_inputs(cfg, params, batch)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x, per_layer = _run_layers(cfg, params, x, ctx, rope, None, "prefill",
@@ -219,15 +270,29 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict, ctx: RunContext,
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, pos: torch.Tensor, ctx: RunContext,
-                block_tables: torch.Tensor, block_size: int):
-    """One paged decode step. tokens: (B, 1) int; pos: (B,) int32 per-slot
-    cursors; block_tables: (B, M) int32.  Writes each row's K/V into the
-    pool in place; returns (logits (B, V), cache)."""
+                tokens: torch.Tensor, pos, ctx: RunContext,
+                block_tables: Optional[torch.Tensor] = None,
+                block_size: int = 0):
+    """One decode step. tokens: (B, 1) int.
+
+    ``pos`` is the decode cursor: an int when the whole batch shares one
+    position (contiguous cohort cache, ``block_tables`` None), or a (B,)
+    int32 tensor of per-slot cursors when ``block_tables`` (B, M) maps each
+    row onto a paged KV block pool.  K/V are written into the cache in
+    place; recurrent state leaves are replaced.  Returns (logits (B, V),
+    cache)."""
     x = embed_tokens(cfg, params, tokens)
-    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    x, _ = _run_layers(cfg, params, x, ctx, rope, cache, "decode", pos,
-                       block_tables=block_tables, block_size=block_size)
+    if block_tables is None:
+        pos = int(pos)
+        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    else:
+        positions = pos[:, None]
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x, per_layer = _run_layers(cfg, params, x, ctx, rope, cache, "decode",
+                               pos, block_tables=block_tables,
+                               block_size=block_size)
+    if has_state_rows(cfg):
+        cache = _stack_caches(cfg, per_layer)
     return unembed(cfg, params, x)[:, 0], cache
 
 

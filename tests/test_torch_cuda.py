@@ -5,8 +5,9 @@ repository's conftest can be skipped):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Elsewhere the test skips: a CUDA kernel has no CPU mode.  Shapes are the
-serving path's (smollm-360m heads: Hq 15, Hkv 5, D 64; block 8; chunk 8).
+Elsewhere the tests skip: a CUDA kernel has no CPU mode.  Shapes are the
+serving paths' (smollm-360m heads: Hq 15, Hkv 5, D 64; block 8; chunk 8;
+rwkv6-7b cohort prefill: B 8, S 64, H 64, N 64).
 Tolerances: float32 atol 2e-5 / rtol 1e-5 (another summation order, TF32
 off), bfloat16 2e-2.
 """
@@ -77,6 +78,41 @@ def test_cuda_kernels_match_plain_versions():
                 c(q).transpose(1, 2), c(k).transpose(1, 2),
                 c(v).transpose(1, 2), window=window).transpose(1, 2)
             torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_matches_plain_version():
+    """On a card: the WKV scan against ``ref.rwkv6_scan_ref`` at the
+    serving shape and the edge cases (s0 None, one step, a ragged S, N 16),
+    r/k/v in float32 and bfloat16 with float32 decays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    for dtype, atol, rtol in ((torch.float32, 2e-5, 1e-5),
+                              (torch.bfloat16, 2e-2, 2e-2)):
+        for b, s, h, n, with_s0 in ((8, 64, 64, 64, True),
+                                    (8, 64, 64, 64, False),
+                                    (2, 1, 4, 64, True),
+                                    (2, 37, 4, 64, True),
+                                    (3, 40, 4, 16, True)):
+            r, k, v = (_t(_randn(rng, (b, s, h, n))).to(dev, dtype)
+                       for _ in range(3))
+            w = torch.sigmoid(_t(_randn(rng, (b, s, h, n)))).to(dev) * 0.7 \
+                + 0.29
+            u = _t(_randn(rng, (h, n))).to(dev)
+            s0 = _t(_randn(rng, (b, h, n, n))).to(dev)
+            y, s_final = ops.rwkv6_scan(r, k, v, w, u,
+                                        s0 if with_s0 else None)
+            torch.cuda.synchronize()
+            init = s0 if with_s0 else torch.zeros_like(s0)
+            want_y, want_s = ref.rwkv6_scan_ref(
+                *(x.transpose(1, 2) for x in (r, k, v, w)), u, init)
+            torch.testing.assert_close(y.float(),
+                                       want_y.transpose(1, 2).float(),
+                                       atol=atol, rtol=rtol)
+            torch.testing.assert_close(s_final, want_s, atol=2e-5, rtol=1e-5)
 
 
 def _randn(rng, shape):

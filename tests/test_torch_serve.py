@@ -151,7 +151,7 @@ def _pool_leaves(pool):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kv="contiguous"), "contiguous mode"),
+    (dict(routing="random"), "routing='random'"),
     (dict(speculative=True), "verify/spec"),
     (dict(disagg=True), "disagg"),
     (dict(hedge_factor=2.0), "faults/hedging"),
@@ -177,10 +177,14 @@ def test_handler_validation_errors():
         tserve.ClientHandler(backend, prefill_chunk=0, mixed_dispatch=True)
     with pytest.raises(ValueError, match="kv must be"):
         tserve.ClientHandler(backend, kv="ring")
+    with pytest.raises(ValueError, match="contiguous cohort path"):
+        tserve.ClientHandler(backend, kv="contiguous", decode_window=2)
 
 
 def test_lm_backend_rejects_windowed_and_recurrent_configs():
-    for arch in ("recurrentgemma-2b", "rwkv6-7b", "olmoe-1b-7b"):
+    """RG-LRU with sliding windows (recurrentgemma) and MoE (olmoe) are
+    later slices; RWKV-6 is served (tests/test_torch_rwkv6.py)."""
+    for arch in ("recurrentgemma-2b", "olmoe-1b-7b"):
         cfg = t_reduced_config(t_get_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.LMBackend(cfg, capacity=CAP, device="cpu")
