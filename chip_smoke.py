@@ -5,13 +5,15 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version, and
-drives the port's two serving paths at full width through
+drives the port's three serving paths at full width through
 ``ClientHandler`` on ``LMBackend`` with random weights from seed 0:
 smollm-360m (32 layers, d_model 960, 15/5 heads, vocab 49152) on the paged
-path, and rwkv6-7b (32 layers, d_model 4096, 64 WKV heads of 64, d_ff
-14336, vocab 65536; 7.53e9 parameters) on the contiguous cohort path; for
-each it checks the float32 token streams of the kernel path against the
-plain path.  Phases:
+path; rwkv6-7b (32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336,
+vocab 65536; 7.53e9 parameters) and recurrentgemma-2b (26 layers: 18
+RG-LRU, 8 local attention with window 2048, 10 query heads over 1 KV head
+of 256; d_model 2560, d_ff 7680, vocab 256000; 2.89e9 parameters) on the
+contiguous cohort path; for each it checks the float32 token streams of
+the kernel path against the plain path.  Phases:
 
 1. device   — a CUDA device must be present; prints name and power limit;
 2. build    — one nvcc per kernel source, all started together;
@@ -20,7 +22,11 @@ plain path.  Phases:
               2e-2, rtol 2e-2), with edge cases (zero-context row,
               n_live == 0 row, scattered tables, softcap, sliding window,
               per-head decode grid; WKV: s0 None, one step, ragged S, N
-              16); CUDA-event times of kernel, plain version and, where one
+              16; RG-LRU: the cohort-prefill shape B 8, S 2048, R 2560
+              with and without h0, one step, ragged S, R 96, float32 and
+              bfloat16 outputs, final state within 1e-5; flash at
+              recurrentgemma's shape, D 256, MQA 10:1, window 2048);
+              CUDA-event times of kernel, plain version and, where one
               exists, one PyTorch library call;
 4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
               sharing a 32-token prefix, 16 new tokens each) through the
@@ -40,7 +46,17 @@ plain path.  Phases:
               on the same weights, under phase 5's near-tie rule, over the
               first 16 of the 32 layers at full width (at 32 layers two
               plain evaluation orders already disagree; see
-              tools/rwkv6_parity_depth.py).
+              tools/rwkv6_parity_depth.py);
+8. hybrid   — recurrentgemma-2b: 8 requests (prompts 1024-2048 tokens,
+              padded to the 2048-token window, 16 new tokens each) through
+              ``kv="contiguous"`` in bfloat16, each step run once and
+              timed: one cohort prefill (18 rglru_scan and 8
+              flash_attention launches, asserted) fills the attention
+              ring, and 15 decode steps at positions 2048-2062 wrap it
+              (asserted);
+9. parity   — the same trace in float32 with impl="cuda" and impl="torch"
+              on the same weights, under phase 5's near-tie rule, at all
+              26 layers (tools/rglru_parity_depth.py sweeps the depth).
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -57,7 +73,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_HBM_BW = 3.35e12            # B/s
 H100_PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FLOP/s, dense
-TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2),
+       "state": (1e-5, 0.0)}
 CAPACITY = 256
 PROMPT_PAD = 96
 MAX_BATCH = 8
@@ -67,16 +84,20 @@ CHUNK = 8
 RWKV_PROMPT_PAD = 64             # the plain WKV path needs S % 64 == 0
 RWKV_CAPACITY = RWKV_PROMPT_PAD + NEW_TOKENS
 # phase 7 holds tokens to the near-tie rule over the first 16 of the 32
-# layers: at all 32, two plain evaluation orders already disagree
-# (tools/rwkv6_parity_depth.py)
+# layers: at all 32, this random-weight model turns float32 rounding into
+# different tokens whichever code makes it, and two plain evaluation
+# orders already disagree (tools/rwkv6_parity_depth.py)
 RWKV_PARITY_LAYERS = 16
+RG_PROMPT_PAD = 2048             # the window: the prefill fills the ring
+RG_CAPACITY = RG_PROMPT_PAD + NEW_TOKENS
 REPLACES = {
     "paged_decode": "src/repro/kernels/flash_attention.py:337",
     "paged_prefill": "src/repro/kernels/flash_attention.py:264",
     "flash_attention": "src/repro/kernels/flash_attention.py:362",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 7
+PHASES = 9
 
 
 def fail(msg):
@@ -349,6 +370,91 @@ def wkv_phase(torch, dev, cfg):
     return results
 
 
+def rglru_phase(torch, dev, gcfg):
+    """rglru_scan vs ``ref.rglru_scan_ref``: the cohort-prefill shape
+    (MAX_BATCH x RG_PROMPT_PAD x lru_width) with and without h0, one step,
+    a ragged S and R 96, float32 and bfloat16 outputs; then CUDA-event
+    times at the serving shape (bf16 output, zero state), as the cohort
+    prefill calls it."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    b, s, r = MAX_BATCH, RG_PROMPT_PAD, gcfg.d_model
+    rng = np.random.default_rng(2)
+    mk = lambda *sh: torch.from_numpy(                     # noqa: E731
+        rng.standard_normal(sh).astype(np.float32)).to(dev)
+    main_err = {}
+    for bb, ss, rr, with_h0 in ((b, s, r, True), (b, s, r, False),
+                                (2, 1, r, True), (2, 37, r, True),
+                                (3, 40, 96, True)):
+        a, bv, h0 = torch.sigmoid(mk(bb, ss, rr)), mk(bb, ss, rr), mk(bb, rr)
+        want_h, want_last = ref.rglru_scan_ref(
+            a, bv, h0 if with_h0 else torch.zeros_like(h0))
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            h, last = ops.rglru_scan(a, bv, h0 if with_h0 else None,
+                                     out_dtype=dtype)
+            e = compare(torch, "rglru_scan", h, want_h.to(dtype), dtype_name)
+            compare(torch, "rglru_scan state", last, want_last, "state")
+            if (bb, ss) == (b, s) and not with_h0:
+                main_err[("rglru_scan", dtype_name)] = e
+    a, bv = torch.sigmoid(mk(b, s, r)), mk(b, s, r)
+    zeros = torch.zeros((b, r), dtype=torch.float32, device=dev)
+    # a and b read in float32, h written in bf16, h_last in float32
+    byts = a.numel() * (4 + 4 + 2) + zeros.numel() * 4
+    host = {}
+    results = {"rglru_scan": dict(
+        ms=time_ms(torch, lambda: ops.rglru_scan(a, bv,
+                                                 out_dtype=torch.bfloat16),
+                   host=host.setdefault("rglru_scan", {})),
+        plain_ms=time_ms(torch, lambda: ref.rglru_scan_ref(a, bv, zeros),
+                         reps=3),
+        bytes=byts, flops=2 * a.numel(), library_ms=None,
+        peak=H100_PEAK["float32"])}
+    finish(results, host, main_err)
+    return results
+
+
+def flash_d256_phase(torch, dev, gcfg):
+    """flash_attention at recurrentgemma's prefill shape (MAX_BATCH x
+    RG_PROMPT_PAD, Hq 10 / Hkv 1, D 256, window 2048, causal) vs its plain
+    version in float32 and bfloat16; then bf16 CUDA-event times beside
+    ``F.scaled_dot_product_attention`` (causal: a window as long as the
+    prompt masks nothing more)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    b, s, w = MAX_BATCH, RG_PROMPT_PAD, gcfg.window
+    hq, hkv, d = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
+    rng = np.random.default_rng(3)
+    main_err = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, s, h, d)).astype(np.float32)).to(dev, dtype)
+            for h in (hq, hkv, hkv))
+        got = ops.flash_attention(q, k, v, window=w)
+        want = ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=w).transpose(1, 2)
+        main_err[("flash_d256", dtype_name)] = compare(
+            torch, "flash_d256", got, want, dtype_name)
+        del want
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    host = {}
+    results = {"flash_d256": dict(
+        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, window=w),
+                   reps=5, host=host.setdefault("flash_d256", {})),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+            qt, kt, vt, window=w), reps=3),
+        bytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+        flops=4 * b * hq * d * s * (s + 1) // 2,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+        peak=H100_PEAK["bfloat16"])}
+    finish(results, host, main_err)
+    return results
+
+
 # --------------------------------------------------------------------------- #
 # phases 4-5: serving
 # --------------------------------------------------------------------------- #
@@ -386,6 +492,38 @@ def rwkv_trace(vocab):
     return [ServeRequest(i, rng.integers(0, vocab, n, dtype=np.int32),
                          NEW_TOKENS, arrival_t=0.0)
             for i, n in enumerate(lens)]
+
+
+def rg_trace(vocab):
+    """8 requests of 1024-2048 prompt tokens (both ends included),
+    arriving together: one cohort of MAX_BATCH rows."""
+    import numpy as np
+    from repro_torch.core.scheduler import ServeRequest
+    rng = np.random.default_rng(13)
+    lens = [1024, RG_PROMPT_PAD] + [int(x) for x in
+                                    rng.integers(1025, RG_PROMPT_PAD, 6)]
+    return [ServeRequest(i, rng.integers(0, vocab, n, dtype=np.int32),
+                         NEW_TOKENS, arrival_t=0.0)
+            for i, n in enumerate(lens)]
+
+
+def cut_depth(model, cfg, params, depth):
+    """The first ``depth`` layers of a model: its config and a view of its
+    parameters (stacked groups cut, the rest taken from the next group)."""
+    if depth == cfg.n_layers:
+        return cfg, params
+    groups, rest = divmod(depth, len(cfg.block_pattern))
+    stack = params["layers"]["stack"]
+    if groups < cfg.n_layers // len(cfg.block_pattern):
+        tail = {f"r{j}": model.tree_map(lambda t: t[groups], stack[f"b{j}"])
+                for j in range(rest)}
+    else:
+        tail = {f"r{j}": params["layers"]["rest"][f"r{j}"]
+                for j in range(rest)}
+    layers = {"stack": model.tree_map(lambda t: t[:groups], stack),
+              "rest": tail}
+    return (dataclasses.replace(cfg, n_layers=depth),
+            dict(params, layers=layers))
 
 
 def serve(torch, backend, reqs, executor=None, **kw):
@@ -484,26 +622,74 @@ def first_mismatches(got, want):
             for rid in want if got[rid] != want[rid]]
 
 
-def rwkv_parity(torch, rcfg):
-    """Phase 7: parity() on the first RWKV_PARITY_LAYERS layers of a
-    full-width float32 rwkv6-7b.  Over all 32 layers this random-weight
-    model turns float32 rounding differences into different tokens
-    whichever code makes them (two plain evaluation orders disagree too):
-    ``tools/rwkv6_parity_depth.py`` measures that."""
+def cohort_parity(torch, cfg, depth, capacity, trace_fn, prompt_pad):
+    """Phases 7 and 9: parity() through ``kv="contiguous"`` on the first
+    ``depth`` layers of ``cfg`` at full width in float32 (random weights
+    from seed 0)."""
     from repro_torch.models import model
-    cfg32 = dataclasses.replace(rcfg, dtype="float32")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = model.init(cfg32, gen, torch.device("cuda"))
-    depth = RWKV_PARITY_LAYERS
-    params["layers"] = dict(params["layers"], stack=model.tree_map(
-        lambda t: t[:depth], params["layers"]["stack"]))
-    log(f"  first {depth} of {rcfg.n_layers} layers")
-    parity(torch, dataclasses.replace(cfg32, n_layers=depth), params,
-           RWKV_CAPACITY, rwkv_trace, RWKV_PROMPT_PAD, kv="contiguous",
-           decode_window=1)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    log(f"  first {depth} of {cfg.n_layers} layers")
+    parity(torch, *cut_depth(model, cfg32, params, depth), capacity,
+           trace_fn, prompt_pad, kv="contiguous", decode_window=1)
+
+
+def rg_serving(torch, gcfg):
+    """Phase 8: recurrentgemma-2b at full width in bf16 through the cohort
+    mode, each step run once and timed.  Asserts one cohort prefill of 18
+    rglru_scan and 8 flash_attention launches, and decode steps at
+    positions past the window on a ring one window long.  Returns the
+    launch counts."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    backend = LMBackend(gcfg, capacity=RG_CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    n_par = model.n_params(gcfg)
+    log(f"  {n_par} parameters, {n_par * 2 / 1e9:.2f} GB of bf16 weights "
+        f"drawn in {time.perf_counter() - t0:.2f} s")
+    steps, rings = [], []
+    timed = timed_once(torch, steps)
+
+    def executor(clone, fn, args):
+        if fn.__name__ == "decode":          # (params, cache, tok, pos)
+            rings.append((args[3], args[1]["stack"]["b2"]["k"].shape[2]))
+        return timed(clone, fn, args)
+
+    ops.reset_launches()
+    toks, rep, _, wall, _ = serve(
+        torch, backend, rg_trace(gcfg.vocab_size), executor=executor,
+        kv="contiguous", decode_window=1, prompt_pad=RG_PROMPT_PAD)
+    got = dict(ops.launches)
+    n_tok = sum(len(t) for t in toks.values())
+    pre = [dt for name, dt in steps if name == "prefill"]
+    dec = [dt for name, dt in steps if name == "decode"]
+    log(f"  {rep.summary()}")
+    log(f"  wall {wall:.4f} s for {n_tok} tokens ({n_tok / wall:.3f} tok/s, "
+        f"each step run once); cohort prefill {len(pre)} x "
+        f"{1e3 * float(np.mean(pre)):.3f} ms, decode steps {len(dec)} "
+        f"(median {1e3 * float(np.median(dec)):.3f} ms, min "
+        f"{1e3 * min(dec):.3f} ms) at positions {rings[0][0]}-"
+        f"{rings[-1][0]} on a {rings[0][1]}-slot ring; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {got}")
+    kinds = gcfg.layer_kinds()
+    want = {"paged_decode": 0, "paged_prefill": 0, "rwkv6_scan": 0,
+            "rglru_scan": len(pre) * kinds.count("rglru"),
+            "flash_attention": len(pre) * kinds.count("attn")}
+    if len(pre) != 1 or got != want:
+        fail(f"hybrid launches {got} (prefills {len(pre)}), want {want}")
+    if any(length != gcfg.window or pos < gcfg.window
+           for pos, length in rings):
+        fail(f"decode did not wrap a {gcfg.window}-slot ring: {rings}")
+    return got
 
 
 def main():
+    t_start = time.perf_counter()
     import gc
     import torch
     if not torch.cuda.is_available():
@@ -536,9 +722,14 @@ def main():
 
     cfg = get_config("smollm-360m")
     rcfg = get_config("rwkv6-7b")
+    gcfg = get_config("recurrentgemma-2b")
     log(f"[3/{PHASES} kernels] each kernel vs its plain version")
     results = kernel_phase(torch, dev, cfg)
     results.update(wkv_phase(torch, dev, rcfg))
+    results.update(rglru_phase(torch, dev, gcfg))
+    d256 = flash_d256_phase(torch, dev, gcfg)["flash_d256"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log(f"[4/{PHASES} serving] smollm-360m full width, bfloat16, paged "
         "ClientHandler")
@@ -603,12 +794,30 @@ def main():
 
     log(f"[7/{PHASES} parity] rwkv6-7b float32 (full width), impl=cuda vs "
         "impl=torch, same weights")
-    rwkv_parity(torch, rcfg)
+    cohort_parity(torch, rcfg, RWKV_PARITY_LAYERS, RWKV_CAPACITY, rwkv_trace,
+                  RWKV_PROMPT_PAD)
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    log(f"[8/{PHASES} hybrid] recurrentgemma-2b full width, bfloat16, "
+        "ClientHandler(kv='contiguous')")
+    rg_launches = rg_serving(torch, gcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[9/{PHASES} parity] recurrentgemma-2b float32 (full width), "
+        "impl=cuda vs impl=torch, same weights")
+    cohort_parity(torch, gcfg, gcfg.n_layers, RG_CAPACITY, rg_trace,
+                  RG_PROMPT_PAD)
+
+    flash_paths = {"smollm": launches["flash_attention"],
+                   "recurrentgemma": rg_launches["flash_attention"]}
+    launches["flash_attention"] = sum(flash_paths.values())
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
+    launches["rglru_scan"] = rg_launches["rglru_scan"]
     kernels = []
     for name in ("paged_decode", "paged_prefill", "flash_attention",
-                 "rwkv6_scan"):
+                 "rwkv6_scan", "rglru_scan"):
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -617,6 +826,14 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name == "flash_attention":
+            # the same kernel at recurrentgemma's prefill shape (D 256)
+            kernels[-1]["launches_by_path"] = flash_paths
+            kernels[-1]["d256"] = {
+                key: d256[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
-KERNELS = ("paged_decode", "paged_prefill", "flash_attention", "rwkv6_scan")
+KERNELS = ("paged_decode", "paged_prefill", "flash_attention", "rwkv6_scan",
+           "rglru_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +36,7 @@ SIGNATURES = {
     + [_F, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 10 + [_F, _F, _P],
     "rwkv6_scan": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    "rglru_scan": [_I] + [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

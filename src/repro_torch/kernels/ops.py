@@ -6,8 +6,8 @@ kernel from ``csrc/`` (building it on first use) and raises if the build or
 the launch fails; on a CPU tensor it runs the kernel's plain version from
 :mod:`repro_torch.kernels.ref`; any other device raises.  The kernels read
 and write the model's own layouts ((B, S, H, D) activations, (N, bs, Hkv, D)
-pools, (B, H, N, N) recurrent states), so no wrapper transposes or pads on
-the card.
+pools, (B, H, N, N) and (B, R) recurrent states), so no wrapper transposes
+or pads on the card.
 
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
@@ -29,7 +29,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WKV_MAX_N = 64              # state columns one rwkv6_scan thread holds
 
 launches = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0,
-            "rwkv6_scan": 0}
+            "rwkv6_scan": 0, "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -44,7 +44,8 @@ def _smem_bytes(rows: int, keys: int, d: int) -> int:
 def _check(name: str, floats, ints=(), *, d: int):
     """Raise unless every float input is a contiguous float32/bfloat16
     tensor of one dtype, every int input a contiguous int32 tensor, all on
-    one device, and the head dim fits a CTA tile."""
+    one device.  Whether a head dim fits a kernel's CTA tile is
+    :func:`_fits`'s call, per kernel."""
     dev = floats[0].device
     dtype = floats[0].dtype
     if dtype not in _DTYPES:
@@ -62,8 +63,8 @@ def _check(name: str, floats, ints=(), *, d: int):
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if not 1 <= d <= 128:
-        raise ValueError(f"{name}: head_dim {d} outside 1..128")
+    if d < 1:
+        raise ValueError(f"{name}: head_dim {d} < 1")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: device {dev} unsupported")
 
@@ -167,7 +168,8 @@ def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
 
 
 def flash_tile(d: int) -> int:
-    """Query rows per CTA for head dim ``d`` (32 up to d = 64)."""
+    """Query rows (and keys) per CTA for head dim ``d``: 32 up to d = 64,
+    8 at d = 256 (8 x 256 accumulator elements fill the CTA's 2048)."""
     return min(32, _NT * _ACC // d)
 
 
@@ -253,3 +255,47 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
                 None if s0 is None else s0.data_ptr(), y.data_ptr(),
                 s_final.data_ptr(), b, s, h, n, device=dev)
     return y, s_final
+
+
+def rglru_scan(a, b, h0=None, out_dtype=None):
+    """RG-LRU linear recurrence ``h_t = a_t * h_{t-1} + b_t``, model layout.
+
+    a, b: (B, S, R) float32 coefficients; h0: (B, R) float32, or None for a
+    zero state.  Any S >= 0 and any R (no padding).  Returns (h (B, S, R)
+    in ``out_dtype`` (default a.dtype; float32 or bfloat16), h_last (B, R)
+    float32).
+    """
+    name = "rglru_scan"
+    if a.ndim != 3 or b.shape != a.shape or (
+            h0 is not None and tuple(h0.shape) != (a.shape[0], a.shape[2])):
+        raise ValueError(f"{name}: bad shapes a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)} "
+                         f"h0{None if h0 is None else tuple(h0.shape)}")
+    bsz, s, r = a.shape
+    out_dtype = out_dtype or a.dtype
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"{name}: out_dtype {out_dtype} unsupported "
+                        "(float32 or bfloat16)")
+    dev = a.device
+    for t in (a, b) + (() if h0 is None else (h0,)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: a, b and h0 must be float32, got "
+                            f"{t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if dev.type == "cpu":
+        if h0 is None:
+            h0 = torch.zeros((bsz, r), dtype=torch.float32)
+        h, h_last = ref.rglru_scan_ref(a, b, h0)
+        return h.to(out_dtype), h_last
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: device {dev} unsupported")
+    h = torch.empty((bsz, s, r), dtype=out_dtype, device=dev)
+    h_last = torch.empty((bsz, r), dtype=torch.float32, device=dev)
+    if bsz and r:
+        _launch(name, _DTYPES[out_dtype], a.data_ptr(), b.data_ptr(),
+                None if h0 is None else h0.data_ptr(), h.data_ptr(),
+                h_last.data_ptr(), bsz, s, r, device=dev)
+    return h, h_last

@@ -118,6 +118,22 @@ def rwkv6_scan_ref(r, k, v, w, u, s0):
     return torch.stack(ys, dim=2).to(r.dtype), s
 
 
+def rglru_scan_ref(a, b, h0):
+    """Sequential linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
+
+    a, b: (B, S, R); h0: (B, R).  Every step is one float32 multiply and
+    one float32 add, each rounded.  Returns (h (B, S, R) in a.dtype,
+    h_last (B, R) float32)."""
+    h = h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + b[:, t].float()
+        hs.append(h)
+    if not hs:
+        return torch.empty_like(a), h.clone()
+    return torch.stack(hs, dim=1).to(a.dtype), h
+
+
 def copy_blocks(leaf, src, dst, *, axis: int = 0):
     """``leaf[dst] = leaf[src]`` along ``axis``, in place; returns ``leaf``.
 

@@ -20,8 +20,9 @@ step boundary form a :class:`_Cohort` that prefills once
 (``model.forward``) and decodes in lockstep on a contiguous cache at one
 shared cursor, one token per dispatch; rows retire at step granularity and
 late arrivals wait for a free clone.  It is the mode that serves
-recurrent-state models (RWKV-6): the paged path raises for them (ROADMAP
-Queue 3).
+recurrent-state models (RWKV-6) and the RG-LRU hybrid with its
+sliding-window ring cache (recurrentgemma): the paged path raises for them
+(ROADMAP Queue 3; the reference has no paged ring).
 
 Speculative decoding, disaggregated prefill, fault injection and hedging,
 the SLO gateway, non-ledger routing and the legacy ``ServingEngine`` raise
@@ -77,8 +78,8 @@ class LMBackend:
     without it parameters are drawn from a ``torch.Generator`` seeded 0.
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``impl`` defaults to the CUDA kernels on a card and the plain path
-    elsewhere.  Configurations outside the dense full-attention and RWKV-6
-    families raise ``NotImplementedError``.
+    elsewhere.  Configurations outside the dense attention, RWKV-6 and
+    RG-LRU hybrid families raise ``NotImplementedError``.
     """
 
     def __init__(self, cfg, capacity: int = 256, *,
@@ -778,6 +779,16 @@ class ClientHandler:
         if decode_window > 1 and kv != "paged":
             raise ValueError("decode_window > 1 requires kv='paged' (the "
                              "contiguous cohort path decodes per token)")
+        window = backend.cfg.window
+        if kv == "paged" and window is not None:
+            raise NotImplementedError(
+                f"{backend.cfg.name}: paged KV cache requires full attention "
+                "(cfg.window=None); use kv='contiguous'")
+        if window is not None and prompt_pad > window and prompt_pad % window:
+            raise ValueError(
+                f"prompt_pad {prompt_pad} exceeds the {window}-token window "
+                "without being a multiple of it: the prefill would fill the "
+                "ring cache out of phase")
         if kv == "paged" and model.has_state_rows(backend.cfg):
             raise NotImplementedError(
                 f"{backend.cfg.name}: recurrent state is not served from the "

@@ -1,8 +1,8 @@
-"""Residual blocks: attention (+ paged or contiguous KV) or RWKV-6, each
-with norm + feed-forward.
+"""Residual blocks: attention (+ paged, contiguous or ring KV), RG-LRU or
+RWKV-6, each with norm + feed-forward.
 
-This slice covers the dense full-attention family and RWKV-6.  RG-LRU
-blocks, sliding windows, MoE feed-forwards and modality frontends raise
+This covers the dense attention family (full or sliding-window), RWKV-6
+and the RG-LRU hybrid.  MoE feed-forwards and modality frontends raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 KV caches are updated **in place**: every write is a function of the
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import rwkv6
+from repro_torch.models import rglru, rwkv6
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import apply_norm, apply_rope, attention_xla, mlp
 from repro_torch.models.spec import ParamSpec
@@ -28,14 +28,6 @@ from repro_torch.models.spec import ParamSpec
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations later slices of the port cover."""
-    if "rglru" in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU blocks are ported later (ROADMAP Queue 1 "
-            "item 6, the rglru/recurrentgemma half)")
-    if cfg.window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is ported later "
-            "(ROADMAP Queue 1 item 6, ring-cache decode)")
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: MoE is ported later "
                                   "(ROADMAP Queue 1 item 7, MoE)")
@@ -86,6 +78,9 @@ def block_specs(cfg: ModelConfig, kind: str):
     if kind == "attn":
         sp["attn"] = attn_specs(cfg)
         sp["ffn"] = mlp_specs(cfg)
+    elif kind == "rglru":
+        sp["rec"] = rglru.rglru_specs(cfg)
+        sp["ffn"] = mlp_specs(cfg)
     elif kind == "rwkv":
         sp["tm"] = rwkv6.rwkv_time_specs(cfg)
         sp["cm"] = rwkv6.rwkv_channel_specs(cfg)
@@ -101,6 +96,13 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, H, n) -> (B, S, H, n)."""
     b, s, d = x.shape
     return torch.matmul(x, w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
+
+
+def _ring_positions(pos: int, window: int,
+                    device=None) -> torch.Tensor:
+    """Absolute position stored in each ring-buffer slot, given cursor pos."""
+    idx = torch.arange(window, device=device)
+    return pos - torch.remainder(pos - idx, window)
 
 
 def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -129,15 +131,23 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     new_cache = None
     if mode == "decode" and block_tables is None:
         # Contiguous cohort decode: leaves are (B, capacity, Hkv, D), every
-        # row at the one cursor ``pos`` (an int); the write pins at
-        # capacity - 1 and attention runs over every cell, causal from pos
-        # (the reference without its sliding-window ring).
+        # row at the one cursor ``pos`` (an int).  A cache exactly one
+        # window long is a ring: the token lands in slot pos % window and
+        # each slot's key carries the position it holds.  Otherwise the
+        # write pins at capacity - 1 and keys sit at their slot index.
         ck, cv = cache["k"], cache["v"]
-        slot = min(int(pos), ck.shape[1] - 1)
+        cap = ck.shape[1]
+        pos = int(pos)
+        k_pos = None
+        if cfg.window is not None and cap == cfg.window:
+            slot = pos % cap
+            k_pos = _ring_positions(pos, cap, x.device)
+        else:
+            slot = min(pos, cap - 1)
         ck[:, slot] = k[:, 0]
         cv[:, slot] = v[:, 0]
-        out = attention_xla(q, ck, cv, causal=True, softcap=softcap,
-                            q_offset=int(pos))
+        out = attention_xla(q, ck, cv, causal=True, window=cfg.window,
+                            softcap=softcap, q_offset=pos, k_pos=k_pos)
         new_cache = cache
     elif mode == "decode":
         # Paged decode: the cache leaves are (N, bs, Hkv, D) block pools
@@ -205,14 +215,36 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
             out = attention_xla(q, k, v, causal=cfg.causal, window=cfg.window,
                                 softcap=softcap)
         if mode == "prefill":
-            pad = (cache_capacity or x.shape[1]) - x.shape[1]
-            new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                         "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+            new_cache = _prefill_cache(k, v, cfg, cache_capacity)
     b, s = out.shape[:2]
     wo = params["wo"]
     out = torch.matmul(out.reshape(b, s, -1).to(x.dtype),
                        wo.reshape(-1, wo.shape[-1]))
     return out, new_cache
+
+
+def _prefill_cache(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                   cache_capacity: int) -> dict:
+    """The contiguous cache a prefill leaves: K/V zero-padded to the
+    capacity, or, when the prompt fills a sliding window, the ring of its
+    last ``window`` keys.
+
+    Decode takes ring slot ``i`` to hold a position congruent to ``i``
+    modulo the window, which the last ``window`` keys are only when the
+    prompt length is a multiple of it.  The reference keeps them all the
+    same and its next decode step overwrites a key still in the window;
+    the port raises instead."""
+    w, s = cfg.window, k.shape[1]
+    if w is not None and s >= w:
+        if s % w:
+            raise ValueError(
+                f"{cfg.name}: a {s}-token prefill fills the {w}-token window "
+                "ring out of phase (ring slot i must hold a position = i mod "
+                "window); pad prompts to the window or a multiple of it")
+        return {"k": k[:, -w:], "v": v[:, -w:]}
+    pad = (cache_capacity or s) - s
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+            "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
 
 
 # --------------------------------------------------------------------------- #
@@ -229,6 +261,9 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
         mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
                                     mode, pos, cache_capacity, block_tables,
                                     block_size)
+    elif kind == "rglru":
+        mix, new_cache = rglru.rglru_block_apply(params["rec"], h, cfg, ctx,
+                                                 cache, mode)
     elif kind == "rwkv":
         mix, tm_cache = rwkv6.rwkv_time_apply(
             params["tm"], h, cfg, ctx,
@@ -251,11 +286,15 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int,
                      dtype: torch.dtype, device=None) -> dict:
     """Zero contiguous cache for one block: (batch, capacity, Hkv, D) K/V
-    for attention, the float32 state rows for RWKV."""
+    for attention (capacity capped at a sliding window: a ring), the state
+    rows for RG-LRU and RWKV."""
     if kind == "attn":
-        shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+        cap = min(capacity, cfg.window) if cfg.window else capacity
+        shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
     if kind == "rwkv":
         return rwkv6.init_rwkv_cache(cfg, batch, dtype, device)
     raise ValueError(kind)

@@ -103,26 +103,31 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
         ok = ok & (k <= q)
     if window is not None:
         ok = ok & (k > q - window)
-    return ok
+    # unwritten ring-buffer slots carry negative positions -> invalid
+    return ok & (k >= 0)
 
 
 def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  softcap: Optional[float] = None, q_offset=0
-                  ) -> torch.Tensor:
+                  softcap: Optional[float] = None, q_offset=0,
+                  k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped-query attention, scores materialized in float32.
 
     q: (B, Sq, Hq, D);  k, v: (B, Sk, Hkv, D);  returns (B, Sq, Hq, D).
     ``q_offset`` is the absolute position of q[0] (an int, or a (B,) tensor
-    of per-row cursors); keys sit at positions 0..Sk-1.  Probabilities are rounded to the value dtype before the PV product,
-    as the reference does.
+    of per-row cursors); keys sit at positions 0..Sk-1 unless ``k_pos``
+    ((Sk,) or (B, Sk)) names each key's position (ring buffers).
+    Probabilities are rounded to the value dtype before the PV product, as
+    the reference does.
     """
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     dev = q.device
     qg = q.reshape(b, sq, hkv, g, d).float()
-    k_pos = torch.arange(sk, device=dev).expand(b, sk)
+    if k_pos is None:
+        k_pos = torch.arange(sk, device=dev)
+    k_pos = k_pos.expand(b, sk)
     if isinstance(q_offset, torch.Tensor) and q_offset.ndim == 1:
         q_pos = q_offset.long()[:, None] + torch.arange(sq, device=dev)
     else:

@@ -124,8 +124,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None) -> Dict:
     """Zero contiguous decode cache, stacked to match the layer grouping:
-    attention leaves (layers, batch, capacity, Hkv, D), RWKV state leaves
-    (layers, batch, ...) in float32."""
+    attention leaves (layers, batch, capacity, Hkv, D) (capacity capped at
+    a sliding window), RG-LRU and RWKV state leaves (layers, batch, ...)."""
     blocks.check_supported(cfg)
     dtype = dtype or dtype_of(cfg)
     pat, n_groups, rest = grouping(cfg)
@@ -153,6 +153,12 @@ def cache_axes(cfg: ModelConfig):
     scales with batch, and the axis that scales with capacity (``None`` for
     per-row state leaves such as recurrent states, which have no sequence
     storage).  Shapes come from meta tensors: nothing is allocated.
+
+    A sliding window caps an attention leaf's capacity, so where the window
+    is at most 8 (reduced configs) both probe capacities give the same
+    shape and its KV leaves report no capacity axis, as in the reference.
+    Nothing may rely on that axis for a windowed configuration: the paged
+    pool, its only user, raises for them (:func:`init_paged_cache`).
     """
     def diff_axis(x, y):
         d = [i for i, (p, q) in enumerate(zip(x.shape, y.shape)) if p != q]
@@ -183,7 +189,11 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_blocks: int,
     trash block inactive slots write into; allocators never hand it out.
     ``max_slots`` would size per-slot state rows: configurations with
     recurrent state are not served paged (the reference's paged path
-    corrupts their state; ROADMAP Queue 3)."""
+    corrupts their state; ROADMAP Queue 3), nor are sliding windows (the
+    reference has no paged ring)."""
+    if cfg.window is not None:
+        raise NotImplementedError("paged KV cache requires full attention "
+                                  "(cfg.window=None)")
     if has_state_rows(cfg):
         raise NotImplementedError(
             f"{cfg.name}: recurrent state rows are not served from the "
@@ -192,11 +202,17 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_blocks: int,
     return init_cache(cfg, num_blocks, block_size, dtype, device)
 
 
-def _stack_caches(cfg: ModelConfig, per_layer):
-    """Per-layer cache trees in depth order -> the stacked cache tree."""
+def _stack_caches(cfg: ModelConfig, per_layer, kv_from=None):
+    """Per-layer cache trees in depth order -> the stacked cache tree.
+    With ``kv_from`` (the stacked cache a decode step wrote its K/V into
+    in place) the attention groups are taken from it as they are, and
+    only the state groups are restacked."""
     pat, n_groups, rest = grouping(cfg)
     out = {"stack": {}, "rest": {}}
-    for j in range(len(pat)):
+    for j, kind in enumerate(pat):
+        if kv_from is not None and kind == "attn":
+            out["stack"][f"b{j}"] = kv_from["stack"][f"b{j}"]
+            continue
         mine = per_layer[j:n_groups * len(pat):len(pat)]
         out["stack"][f"b{j}"] = tree_map(lambda *xs: torch.stack(xs),
                                          *mine)
@@ -292,7 +308,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                                pos, block_tables=block_tables,
                                block_size=block_size)
     if has_state_rows(cfg):
-        cache = _stack_caches(cfg, per_layer)
+        cache = _stack_caches(cfg, per_layer, kv_from=cache)
     return unembed(cfg, params, x)[:, 0], cache
 
 

@@ -2,8 +2,8 @@
 
 Key-path rule: the port keeps the reference's parameter tree unchanged.
 Every leaf at path ``embed``, ``final_norm/scale``, ``head``,
-``layers/stack/b{i}/{norm1,norm2,attn,ffn}/<name>`` (stacked on a leading
-group axis, which the port keeps: layer ``g`` reads ``leaf[g]``) or
+``layers/stack/b{i}/{norm1,norm2,attn,rec,tm,cm,ffn}/<name>`` (stacked on
+a leading group axis, which the port keeps: layer ``g`` reads ``leaf[g]``) or
 ``layers/rest/r{i}/...`` maps to the same path in
 :func:`repro_torch.models.model.param_specs`, with the same shape, cast to
 that spec's dtype.  Inputs are numpy arrays (``np.asarray`` of each JAX

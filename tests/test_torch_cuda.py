@@ -7,7 +7,8 @@ repository's conftest can be skipped):
 
 Elsewhere the tests skip: a CUDA kernel has no CPU mode.  Shapes are the
 serving paths' (smollm-360m heads: Hq 15, Hkv 5, D 64; block 8; chunk 8;
-rwkv6-7b cohort prefill: B 8, S 64, H 64, N 64).
+rwkv6-7b cohort prefill: B 8, S 64, H 64, N 64; recurrentgemma-2b: RG-LRU
+width 2560, attention Hq 10, Hkv 1, D 256, window 2048).
 Tolerances: float32 atol 2e-5 / rtol 1e-5 (another summation order, TF32
 off), bfloat16 2e-2.
 """
@@ -113,6 +114,45 @@ def test_rwkv6_scan_matches_plain_version():
                                        want_y.transpose(1, 2).float(),
                                        atol=atol, rtol=rtol)
             torch.testing.assert_close(s_final, want_s, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_matches_plain_version():
+    """On a card: the RG-LRU scan against ``ref.rglru_scan_ref`` (float32
+    coefficients, float32 and bfloat16 outputs) with and without h0, one
+    step, a ragged S and a narrow R; and the flash kernel at head_dim 256
+    with MQA 10:1 and a window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    for b, s, r, with_h0 in ((8, 512, 2560, True), (8, 512, 2560, False),
+                             (2, 1, 2560, True), (2, 37, 2560, True),
+                             (3, 40, 96, True)):
+        a = torch.sigmoid(_t(_randn(rng, (b, s, r)))).to(dev)
+        bb = _t(_randn(rng, (b, s, r))).to(dev)
+        h0 = _t(_randn(rng, (b, r))).to(dev)
+        init = h0 if with_h0 else torch.zeros_like(h0)
+        want_h, want_last = ref.rglru_scan_ref(a, bb, init)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            h, last = ops.rglru_scan(a, bb, h0 if with_h0 else None,
+                                     out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(h, want_h.to(out_dtype), atol=2e-5,
+                                       rtol=1e-5)
+            torch.testing.assert_close(last, want_last, atol=1e-5, rtol=0)
+    for dtype, atol, rtol in ((torch.float32, 2e-5, 1e-5),
+                              (torch.bfloat16, 2e-2, 2e-2)):
+        q, k, v = (_t(_randn(rng, (2, 100, h, 256))).to(dev, dtype)
+                   for h in (10, 1, 1))
+        got = ops.flash_attention(q, k, v, window=48)
+        want = ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=48).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
 
 
 def _randn(rng, shape):

@@ -282,8 +282,11 @@ def test_supports_chunked_and_unported_paths():
     assert tm.supports_chunked_prefill(tcfg)
     rg = t_reduced_config(t_get_config("recurrentgemma-2b"))
     assert not tm.supports_chunked_prefill(rg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="full attention"):
         tm.init_paged_cache(rg, 2, 4, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.init_paged_cache(t_reduced_config(t_get_config("olmoe-1b-7b")),
+                            2, 4, 4)
     with pytest.raises(NotImplementedError, match="training"):
         tm.forward(tcfg, _setup()["tp"], {"tokens": torch.zeros(1, 4)},
                    _ctx("torch"), "train")

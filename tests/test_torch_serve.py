@@ -182,12 +182,16 @@ def test_handler_validation_errors():
 
 
 def test_lm_backend_rejects_windowed_and_recurrent_configs():
-    """RG-LRU with sliding windows (recurrentgemma) and MoE (olmoe) are
-    later slices; RWKV-6 is served (tests/test_torch_rwkv6.py)."""
-    for arch in ("recurrentgemma-2b", "olmoe-1b-7b"):
-        cfg = t_reduced_config(t_get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.LMBackend(cfg, capacity=CAP, device="cpu")
+    """MoE (olmoe) is a later slice; the RG-LRU hybrid with its sliding
+    window (recurrentgemma, tests/test_torch_rglru.py) and RWKV-6
+    (tests/test_torch_rwkv6.py) are served through kv='contiguous' only."""
+    cfg = t_reduced_config(t_get_config("olmoe-1b-7b"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.LMBackend(cfg, capacity=CAP, device="cpu")
+    cfg = t_reduced_config(t_get_config("recurrentgemma-2b"))
+    backend = tserve.LMBackend(cfg, capacity=CAP, device="cpu")
+    with pytest.raises(NotImplementedError, match="full attention"):
+        tserve.ClientHandler(backend, executor=_fixed)
 
 
 def test_pow2_bucket_and_kv_pool_bookkeeping():
