@@ -25,9 +25,14 @@ the kernel path against the plain path.  Phases:
               16; RG-LRU: the cohort-prefill shape B 8, S 2048, R 2560
               with and without h0, one step, ragged S, R 96, float32 and
               bfloat16 outputs, final state within 1e-5; flash at
-              recurrentgemma's shape, D 256, MQA 10:1, window 2048);
-              CUDA-event times of kernel, plain version and, where one
-              exists, one PyTorch library call;
+              recurrentgemma's shape, D 256, MQA 10:1, window 2048; the
+              bf16 tensor-core flash kernel at every head dim it is built
+              for (64, 80, 96, 128, 256) with GQA groups of 1, 3 and 10,
+              ragged S, windows, softcap, non-causal, B 1 and S 1, and a
+              head dim it refuses); CUDA-event times of kernel, plain
+              version and, where one exists, one PyTorch library call
+              (flash also replayed from a CUDA graph, which leaves out
+              the host's launch path);
 4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
               sharing a 32-token prefix, 16 new tokens each) through the
               default paged handler path in bfloat16, decode_window 4;
@@ -130,15 +135,16 @@ def paged_inputs(torch, rng, b, hkv, d, lens, dtype, dev, extra=4):
             torch.from_numpy(tables).to(dev), mk)
 
 
-def compare(torch, name, got, want, dtype_name):
+def compare(torch, name, got, want, dtype_name, quiet=False):
     atol, rtol = TOL[dtype_name]
     g, w = got.float(), want.float()
     err = float((g - w).abs().max()) if g.numel() else 0.0
     ok = bool(((g - w).abs() <= atol + rtol * w.abs()).all())
     if not bool(torch.isfinite(g).all()):
         ok = False
-    log(f"  {name:16s} {dtype_name:8s} max_abs_err={err:.3e} "
-        f"{'ok' if ok else 'MISMATCH'}")
+    if not quiet or not ok:
+        log(f"  {name:16s} {dtype_name:8s} max_abs_err={err:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} ({dtype_name}) disagrees with its plain version "
              f"(max abs err {err}, atol {atol}, rtol {rtol})")
@@ -160,6 +166,29 @@ def time_ms(torch, fn, reps=50, host=None):
         fn()
     if host is not None:
         host["ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps=50):
+    """CUDA-event time per call of ``fn`` replayed from one CUDA graph of
+    ``reps`` calls: the device's time without the host's launch path."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -283,7 +312,11 @@ def kernel_phase(torch, dev, cfg):
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(qt, kt, vt)),
         bytes=byts, flops=flops,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)))
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        graph_ms=graph_ms(torch, lambda: ops.flash_attention(q, k, v)))
+    # the plan the timed bf16 calls launched with
+    results["flash_attention"]["plan"] = \
+        ops.last_plan["flash_attention"]._asdict()
     for r in results.values():
         r["peak"] = peak
     finish(results, host, main_err)
@@ -302,8 +335,10 @@ def finish(results, host, main_err):
         r["max_abs_err"] = main_err[(name, "bfloat16")]
         r["max_abs_err_float32"] = main_err[(name, "float32")]
         lib = r["library_ms"]
+        graph = (f", {r['graph_ms']:.5f} ms from a CUDA graph"
+                 if "graph_ms" in r else "")
         log(f"  time {name:16s} kernel {r['ms']:.5f} ms (host enqueue "
-            f"{host[name]['ms']:.5f} ms)  plain "
+            f"{host[name]['ms']:.5f} ms{graph})  plain "
             f"{r['plain_ms']:.5f} ms  library "
             f"{lib if lib is None else round(lib, 5)}"
             f" ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
@@ -414,6 +449,57 @@ def rglru_phase(torch, dev, gcfg):
     return results
 
 
+def flash_tc_phase(torch, dev):
+    """The bf16 tensor-core flash kernel vs its plain version at every head
+    dim it is built for: GQA groups of 1, 3 and 10, ragged S (100, 129),
+    windows 32 and 48, softcap 30, non-causal, B 1 and S 1; and a head dim
+    it was not built for, which must raise ValueError."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(4)
+    # q is scaled by 8 in the softcap case: scores of std 8 pass the cap
+    cases = [dict(s=100), dict(s=129), dict(s=129, window=32),
+             dict(s=100, window=48), dict(s=100, softcap=30.0, qs=8.0),
+             dict(s=129, causal=False), dict(s=100, b=1), dict(s=1)]
+    for d in ops.FLASH_TC_HEAD_DIMS:
+        worst = 0.0
+        for g, hkv in ((1, 2), (3, 5), (10, 1)):
+            for case in cases:
+                kw = dict(case)
+                b, s, qs = kw.pop("b", 2), kw.pop("s"), kw.pop("qs", 1.0)
+                q, k, v = (torch.from_numpy(rng.standard_normal(
+                    (b, s, h, d)).astype(np.float32)).to(dev, torch.bfloat16)
+                    for h in (g * hkv, hkv, hkv))
+                q = q * qs
+                got = ops.flash_attention(q, k, v, **kw)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                want = ref.flash_attention_ref(qt, kt, vt, **kw).transpose(
+                    1, 2)
+                worst = max(worst, compare(
+                    torch, f"flash D{d} g{g}", got, want, "bfloat16",
+                    quiet=True))
+                if kw.get("softcap"):
+                    # the case fails a kernel that drops the cap
+                    atol, rtol = TOL["bfloat16"]
+                    plain = ref.flash_attention_ref(
+                        qt, kt, vt, **dict(kw, softcap=None)).transpose(1, 2)
+                    if torch.allclose(plain.float(), want.float(), atol=atol,
+                                      rtol=rtol):
+                        fail(f"flash D{d} g{g}: softcap does not change "
+                             "the plain output beyond the tolerance")
+        log(f"  flash_attention  bfloat16 D {d}: {3 * len(cases)} cases "
+            f"(g 1/3/10, S 100/129, window 32/48, softcap, non-causal, "
+            f"B 1, S 1) max_abs_err={worst:.3e} ok")
+    q, k, v = (torch.zeros((1, 8, h, 48), dtype=torch.bfloat16, device=dev)
+               for h in (4, 2, 2))
+    try:
+        ops.flash_attention(q, k, v)
+    except ValueError as e:
+        log(f"  flash_attention  bfloat16 D 48 refused: {e}")
+    else:
+        fail("flash_attention: bf16 head dim 48 did not raise ValueError")
+
+
 def flash_d256_phase(torch, dev, gcfg):
     """flash_attention at recurrentgemma's prefill shape (MAX_BATCH x
     RG_PROMPT_PAD, Hq 10 / Hkv 1, D 256, window 2048, causal) vs its plain
@@ -443,14 +529,18 @@ def flash_d256_phase(torch, dev, gcfg):
     host = {}
     results = {"flash_d256": dict(
         ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, window=w),
-                   reps=5, host=host.setdefault("flash_d256", {})),
+                   reps=20, host=host.setdefault("flash_d256", {})),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
             qt, kt, vt, window=w), reps=3),
         bytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
         flops=4 * b * hq * d * s * (s + 1) // 2,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-        peak=H100_PEAK["bfloat16"])}
+        graph_ms=graph_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                             window=w),
+                          reps=20),
+        peak=H100_PEAK["bfloat16"],
+        plan=ops.last_plan["flash_attention"]._asdict())}
     finish(results, host, main_err)
     return results
 
@@ -717,14 +807,18 @@ def main():
     for name in libs:
         for line in (build.build_dir() / f"{name}.log").read_text() \
                 .splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "entry function" in line:
+                entry = line.split("'")[1]
+                log(f"  {name}: {entry}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}:   {line.strip()}")
 
     cfg = get_config("smollm-360m")
     rcfg = get_config("rwkv6-7b")
     gcfg = get_config("recurrentgemma-2b")
     log(f"[3/{PHASES} kernels] each kernel vs its plain version")
     results = kernel_phase(torch, dev, cfg)
+    flash_tc_phase(torch, dev)
     results.update(wkv_phase(torch, dev, rcfg))
     results.update(rglru_phase(torch, dev, gcfg))
     d256 = flash_d256_phase(torch, dev, gcfg)["flash_d256"]
@@ -829,10 +923,13 @@ def main():
         if name == "flash_attention":
             # the same kernel at recurrentgemma's prefill shape (D 256)
             kernels[-1]["launches_by_path"] = flash_paths
+            kernels[-1]["graph_ms"] = r["graph_ms"]
             kernels[-1]["d256"] = {
                 key: d256[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}
+                    "library_ms", "graph_ms")}
+            # the plans the timed bf16 calls launched with
+            kernels[-1]["plans"] = {"d64": r["plan"], "d256": d256["plan"]}
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,7 +34,7 @@ SIGNATURES = {
     "paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _F, _P],
     "paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8
     + [_F, _F, _P],
-    "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 10 + [_F, _F, _P],
+    "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 11 + [_F, _F, _P],
     "rwkv6_scan": [_I] + [_P] * 8 + [_I] * 4 + [_P],
     "rglru_scan": [_I] + [_P] * 5 + [_I] * 3 + [_P],
 }

@@ -11,16 +11,18 @@ or pads on the card.
 
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
+``last_plan`` holds the :class:`FlashPlan` of flash_attention's last launch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 
-# per-CTA tile limits shared by the three kernels (csrc/attn_tile.cuh)
+# per-CTA tile limits of the scalar attention kernels (csrc/attn_tile.cuh:
+# paged decode, paged prefill, float32 flash)
 _NT = 128
 _ACC = 16
 _MAX_SMEM = 232448            # bytes a Hopper block may use
@@ -28,8 +30,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _WKV_MAX_N = 64              # state columns one rwkv6_scan thread holds
 
+# bf16 flash_attention, the tensor-core kernel (csrc/flash_attention.cu,
+# whose BK and two-stage ring these mirror)
+FLASH_TC_HEAD_DIMS = (64, 80, 96, 128, 256)     # one template each
+_TC_KEYS = 64                # keys per K/V tile
+_TC_STAGES = 2               # K/V ring depth
+_TC_WARPGROUP = 128          # threads per consumer warpgroup (64 rows)
+_SMS = 132                   # H100 SXM streaming multiprocessors
+
 launches = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0,
             "rwkv6_scan": 0, "rglru_scan": 0}
+last_plan = {}
 
 
 def reset_launches() -> None:
@@ -167,10 +178,47 @@ def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
     return out
 
 
-def flash_tile(d: int) -> int:
-    """Query rows (and keys) per CTA for head dim ``d``: 32 up to d = 64,
-    8 at d = 256 (8 x 256 accumulator elements fill the CTA's 2048)."""
-    return min(32, _NT * _ACC // d)
+class FlashPlan(NamedTuple):
+    """Launch plan of one flash_attention call.
+
+    ``kernel`` is "tensor_core" (bfloat16: one CTA per ``rows`` flattened
+    (position, q-head) rows of one (batch, kv-head), grid (tiles, Hkv, B))
+    or "scalar" (float32: one CTA per ``rows`` positions of one q-head, grid
+    (tiles, Hq, B)); ``keys`` per K/V tile, ``stages`` in the K/V ring,
+    ``threads`` per CTA, ``smem`` dynamic shared bytes per CTA."""
+    kernel: str
+    grid: Tuple[int, int, int]
+    rows: int
+    keys: int
+    stages: int
+    threads: int
+    smem: int
+
+
+def flash_plan(b: int, s: int, hq: int, hkv: int, d: int,
+               dtype: torch.dtype) -> FlashPlan:
+    """The grid, tile and shared memory the CUDA flash kernel launches
+    with: the kernel takes rows, the grid's x extent and ``smem`` from here
+    and computes none of them itself.  bfloat16 takes the tensor-core
+    kernel (head dims :data:`FLASH_TC_HEAD_DIMS`, else ``ValueError``):
+    128-row tiles, or 64-row tiles where 128 would leave SMs idle.
+    float32 takes the scalar kernel: 32 rows up to d = 64, fewer above
+    (its register accumulator holds 2048 elements per CTA)."""
+    name = "flash_attention"
+    if dtype == torch.bfloat16:
+        if d not in FLASH_TC_HEAD_DIMS:
+            raise ValueError(f"{name}: the bfloat16 kernel is built for head "
+                             f"dims {FLASH_TC_HEAD_DIMS}, not {d}")
+        rows = s * (hq // hkv)
+        m = 128 if -(-rows // 128) * hkv * b >= _SMS else 64
+        dp = -(-d // 64) * 64
+        smem = 2 * dp * (m + 2 * _TC_STAGES * _TC_KEYS) + 1024
+        return FlashPlan("tensor_core", (-(-rows // m), hkv, b), m,
+                         _TC_KEYS, _TC_STAGES, m // 64 * _TC_WARPGROUP, smem)
+    bq = min(32, _NT * _ACC // d)
+    _fits(name, bq, bq, d)
+    return FlashPlan("scalar", (-(-s // bq), hq, b), bq, bq, 1, _NT,
+                     _smem_bytes(bq, bq, d))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -193,14 +241,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return ref.flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, softcap=softcap).transpose(1, 2)
-    bq = bk = flash_tile(d)
-    _fits(name, bq, bk, d)
+    plan = flash_plan(b, s, hq, hkv, d, q.dtype)
+    if plan.kernel == "tensor_core" and any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"{name}: the bfloat16 kernel copies 16-byte "
+                         "chunks and needs 16-byte-aligned inputs")
     out = torch.empty_like(q)
     if b and s and t:
         _launch(name, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, s, t, hq, hkv, d, bq, bk,
-                int(causal), int(window or 0), d ** -0.5,
-                float(softcap or 0.0), device=q.device)
+                v.data_ptr(), out.data_ptr(), b, s, t, hq, hkv, d, plan.rows,
+                plan.grid[0], plan.smem, int(causal), int(window or 0),
+                d ** -0.5, float(softcap or 0.0), device=q.device)
+        last_plan[name] = plan
     return out
 
 

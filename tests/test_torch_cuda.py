@@ -5,10 +5,12 @@ repository's conftest can be skipped):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Elsewhere the tests skip: a CUDA kernel has no CPU mode.  Shapes are the
+Elsewhere the tests skip: a CUDA kernel has no CPU mode (only
+test_flash_softcap_case_bites, a check of the inputs, runs on the CPU).  Shapes are the
 serving paths' (smollm-360m heads: Hq 15, Hkv 5, D 64; block 8; chunk 8;
 rwkv6-7b cohort prefill: B 8, S 64, H 64, N 64; recurrentgemma-2b: RG-LRU
-width 2560, attention Hq 10, Hkv 1, D 256, window 2048).
+width 2560, attention Hq 10, Hkv 1, D 256, window 2048), and for the bf16
+tensor-core flash kernel every head dim it is built for.
 Tolerances: float32 atol 2e-5 / rtol 1e-5 (another summation order, TF32
 off), bfloat16 2e-2.
 """
@@ -153,6 +155,82 @@ def test_rglru_scan_matches_plain_version():
             window=48).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=rtol)
+
+
+# the softcap case scales q so that scores (std 8) pass the cap of 30 and
+# the cap moves the output by more than the tolerance
+SOFTCAP_Q_SCALE = 8.0
+
+
+def _flash_bf16_case(dev, rng, b, s, hq, hkv, d, q_scale=1.0, **kw):
+    q, k, v = (_t(_randn(rng, (b, s, h, d))).to(dev, torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    q = q * q_scale                      # a power of 2: exact in bf16
+    got = ops.flash_attention(q, k, v, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    want = ref.flash_attention_ref(qt, kt, vt, **kw).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    if kw.get("softcap"):
+        # a kernel that ignored the cap would be outside the tolerance
+        uncapped = dict(kw, softcap=None)
+        plain = ref.flash_attention_ref(qt, kt, vt, **uncapped)
+        assert not torch.allclose(plain.transpose(1, 2).float(),
+                                  want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_softcap_case_bites(d):
+    """On the CPU (the wrapper's plain version): the softcap case's inputs
+    make the cap change the output beyond the bf16 tolerance, so the card
+    test's softcap case fails a kernel that drops or misplaces the cap."""
+    rng = np.random.default_rng(9)
+    for g, hkv in ((1, 2), (3, 5), (10, 1)):
+        _flash_bf16_case(torch.device("cpu"), rng, 2, 100, g * hkv, hkv, d,
+                         q_scale=SOFTCAP_Q_SCALE, softcap=30.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
+def test_flash_attention_tensor_core_matches_plain_version(d):
+    """On a card: the bf16 tensor-core flash kernel against
+    ``ref.flash_attention_ref`` (atol / rtol 2e-2: one bf16 rounding of P
+    and of the output) at every head dim it is built for: GQA groups of 1,
+    3 and 10, ragged S (100, 129: no multiple of the 64-key tile), windows
+    32 and 48, softcap 30 (on scores of std 8, where the cap bites),
+    non-causal, B 1 and S 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    for g, hkv in ((1, 2), (3, 5), (10, 1)):
+        for s in (100, 129):
+            _flash_bf16_case(dev, rng, 2, s, g * hkv, hkv, d)
+        _flash_bf16_case(dev, rng, 2, 129, g * hkv, hkv, d, window=32)
+        _flash_bf16_case(dev, rng, 2, 100, g * hkv, hkv, d, window=48)
+        _flash_bf16_case(dev, rng, 2, 100, g * hkv, hkv, d,
+                         q_scale=SOFTCAP_Q_SCALE, softcap=30.0)
+        _flash_bf16_case(dev, rng, 2, 129, g * hkv, hkv, d, causal=False)
+        _flash_bf16_case(dev, rng, 1, 100, g * hkv, hkv, d)
+        _flash_bf16_case(dev, rng, 2, 1, g * hkv, hkv, d)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_unbuilt_head_dim():
+    """On a card: a bf16 call at a head dim the tensor-core kernel was not
+    built for raises ValueError (no other kernel takes it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    q, k, v = (torch.zeros((1, 8, h, 48), dtype=torch.bfloat16,
+                           device="cuda") for h in (4, 2, 2))
+    before = ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)
+    assert ops.launches["flash_attention"] == before
 
 
 def _randn(rng, shape):

@@ -212,9 +212,16 @@ def test_flash_attention_head_dim_256_matches_pallas():
     got = ops.flash_attention(_t(q), _t(k), _t(v), window=16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
-    # the CUDA tile: 8 rows x 256 fills the CTA's accumulator; the paged
-    # kernels' per-group tiles (10 rows) do not fit and are refused
-    assert ops.flash_tile(256) == 8
+    # the CUDA tiles: in bfloat16, the tensor-core kernel's 128 flattened
+    # (position, head) rows per CTA at the serving shape, in 192 KiB of
+    # shared memory; in float32, the scalar kernel's 8 rows x 256 fill its
+    # accumulator.  The paged kernels' per-group tiles (10 rows) do not fit
+    # and are refused
+    plan = ops.flash_plan(8, 2048, 10, 1, 256, torch.bfloat16)
+    assert (plan.kernel, plan.rows, plan.grid) == ("tensor_core", 128,
+                                                   (160, 1, 8))
+    assert plan.smem <= ops._MAX_SMEM
+    assert ops.flash_plan(8, 2048, 10, 1, 256, torch.float32).rows == 8
     ops._fits("flash_attention", 8, 8, 256)
     with pytest.raises(ValueError, match="exceeds one CTA"):
         ops._fits("paged_decode", 10, 8, 256)
