@@ -29,10 +29,15 @@ the kernel path against the plain path.  Phases:
               bf16 tensor-core flash kernel at every head dim it is built
               for (64, 80, 96, 128, 256) with GQA groups of 1, 3 and 10,
               ragged S, windows, softcap, non-causal, B 1 and S 1, and a
-              head dim it refuses); CUDA-event times of kernel, plain
-              version and, where one exists, one PyTorch library call
-              (flash also replayed from a CUDA graph, which leaves out
-              the host's launch path);
+              head dim it refuses; paged decode over D 16/64/128/256,
+              GQA groups 1/3/8, block 8 and 16, contexts 0, 1, bs, bs+1
+              and the full table, both grids, softcap, and out-of-pool
+              table ids past the context; paged decode at a long context:
+              qwen2.5-3b's heads, 8 slots near 8192 tokens, block 16);
+              CUDA-event times of kernel, plain version and, where one
+              exists, one PyTorch library call (flash and paged decode
+              also replayed from a CUDA graph, which leaves out the host's
+              launch path);
 4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
               sharing a 32-token prefix, 16 new tokens each) through the
               default paged handler path in bfloat16, decode_window 4;
@@ -95,6 +100,8 @@ RWKV_CAPACITY = RWKV_PROMPT_PAD + NEW_TOKENS
 RWKV_PARITY_LAYERS = 16
 RG_PROMPT_PAD = 2048             # the window: the prefill fills the ring
 RG_CAPACITY = RG_PROMPT_PAD + NEW_TOKENS
+# phase 3's long decode shape: 8 slots near an 8192-token context
+LONG_CTX = (8192, 8097, 8065, 8146, 8171, 8086, 8128, 8184)
 REPLACES = {
     "paged_decode": "src/repro/kernels/flash_attention.py:337",
     "paged_prefill": "src/repro/kernels/flash_attention.py:264",
@@ -117,11 +124,12 @@ def log(msg):
 # --------------------------------------------------------------------------- #
 # phase 3: kernels vs plain versions
 # --------------------------------------------------------------------------- #
-def paged_inputs(torch, rng, b, hkv, d, lens, dtype, dev, extra=4):
-    """Pool + scattered, shuffled tables covering ``lens`` tokens per row."""
+def paged_inputs(torch, rng, b, hkv, d, lens, dtype, dev, extra=4,
+                 bs=BLOCK, m=CAPACITY // BLOCK):
+    """Pool of block size ``bs`` + scattered, shuffled (b, m) tables
+    covering ``lens`` tokens per row."""
     import numpy as np
-    m = CAPACITY // BLOCK
-    spans = [max(-(-ln // BLOCK), 1) for ln in lens]
+    spans = [max(-(-ln // bs), 1) for ln in lens]
     n = sum(spans) + 1 + extra
     ids = rng.permutation(np.arange(1, n))
     tables = np.zeros((b, m), np.int32)
@@ -131,8 +139,19 @@ def paged_inputs(torch, rng, b, hkv, d, lens, dtype, dev, extra=4):
         nxt += sp
     mk = lambda *s: torch.from_numpy(                      # noqa: E731
         rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
-    return (mk(n, BLOCK, hkv, d), mk(n, BLOCK, hkv, d),
+    return (mk(n, bs, hkv, d), mk(n, bs, hkv, d),
             torch.from_numpy(tables).to(dev), mk)
+
+
+def paged_decode_cost(q, lens, hkv, d, bs, item):
+    """Bytes and flops of one decode call: q read and out written, each
+    live key and value read once per kv-head, the table entries j <
+    ceil(ctx / bs) and the lengths read."""
+    ctx_tok = sum(lens)
+    entries = sum(-(-ln // bs) for ln in lens)
+    byts = (2 * q.numel() * item + 2 * ctx_tok * hkv * d * item
+            + entries * 4 + len(lens) * 4)
+    return byts, 4 * q.shape[2] * d * ctx_tok
 
 
 def compare(torch, name, got, want, dtype_name, quiet=False):
@@ -267,19 +286,15 @@ def kernel_phase(torch, dev, cfg):
                                       dtype, dev)
     cls = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = mk(MAX_BATCH, 1, hq, d)
-    ctx_tok = sum(lens)
-    # each CTA reads only the table entries j < ceil(ctx / bs) of its row
-    entries = sum(-(-ln // BLOCK) for ln in lens)
-    byts = (2 * q.numel() * item + 2 * ctx_tok * hkv * d * item
-            + entries * 4 + cls.numel() * 4)
-    flops = 4 * hq * d * ctx_tok
+    byts, flops = paged_decode_cost(q, lens, hkv, d, BLOCK, item)
+    decode = lambda: ops.paged_attention(q, kp, vp, tables, cls)  # noqa
     results["paged_decode"] = dict(
-        ms=time_ms(torch, lambda: ops.paged_attention(q, kp, vp, tables,
-                                                      cls),
-                   host=host.setdefault("paged_decode", {})),
+        ms=time_ms(torch, decode, host=host.setdefault("paged_decode", {})),
         plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(
             q[:, 0], kp, vp, tables, cls)),
-        bytes=byts, flops=flops, library_ms=None)
+        bytes=byts, flops=flops, library_ms=None,
+        graph_ms=graph_ms(torch, decode))
+    results["paged_decode"]["plan"] = launch_plan(ops, "paged_decode")
     p0 = np.array([36, 32], np.int32)
     nl = np.array([8, 8], np.int32)
     kp, vp, tables, mk = paged_inputs(torch, rng, 2, hkv, d, p0 + CHUNK,
@@ -321,6 +336,110 @@ def kernel_phase(torch, dev, cfg):
         r["peak"] = peak
     finish(results, host, main_err)
     return results
+
+
+def launch_plan(ops, name):
+    """The plan of ``name``'s last launch, as a dict (None before any)."""
+    plan = ops.last_plan.get(name)
+    return None if plan is None else plan._asdict()
+
+
+def paged_long_phase(torch, dev):
+    """paged_decode at a long context (qwen2.5-3b's heads: Hq 16, Hkv 2,
+    D 128; 8 slots of 8065-8192 tokens; block 16, table width 512) vs its
+    plain version in float32 and bfloat16; then bf16 CUDA-event, host
+    enqueue and graph-replayed times.  Its 66.6 MB of K/V exceed the 50 MB
+    L2, so graph replays cannot run from the cache."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    hq, hkv, d, bs, m = 16, 2, 128, 16, 512
+    lens = list(LONG_CTX)
+    rng = np.random.default_rng(5)
+    cls = torch.tensor(lens, dtype=torch.int32, device=dev)
+    main_err = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        kp, vp, tables, mk = paged_inputs(torch, rng, len(lens), hkv, d,
+                                          lens, dtype, dev, bs=bs, m=m)
+        q = mk(len(lens), 1, hq, d)
+        got = ops.paged_attention(q, kp, vp, tables, cls)
+        want = ref.paged_attention_ref(q[:, 0], kp, vp, tables,
+                                       cls)[:, None]
+        main_err[("paged_decode_long", dtype_name)] = compare(
+            torch, "paged_decode long", got, want, dtype_name)
+        del want
+    byts, flops = paged_decode_cost(q, lens, hkv, d, bs, 2)
+    decode = lambda: ops.paged_attention(q, kp, vp, tables, cls)  # noqa
+    host = {}
+    results = {"paged_decode_long": dict(
+        ms=time_ms(torch, decode,
+                   host=host.setdefault("paged_decode_long", {})),
+        plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(
+            q[:, 0], kp, vp, tables, cls), reps=5),
+        bytes=byts, flops=flops, library_ms=None,
+        graph_ms=graph_ms(torch, decode), peak=H100_PEAK["bfloat16"],
+        plan=launch_plan(ops, "paged_decode"))}
+    finish(results, host, main_err)
+    return results
+
+
+def paged_sweep_phase(torch, dev):
+    """paged_decode vs its plain version over the edge cases: D 16, 64,
+    128, 256; GQA groups 1, 3, 8 over 2 kv-heads; block 8 and 16; one row
+    each of ctx 0, 1, bs, bs + 1 and the full table (M 4); fused and
+    per-head grids; softcap 30 on scores of std 8 (q scaled by 8, so the
+    cap moves the output beyond the tolerance); table entries past each
+    row's context hold ids outside the pool (the kernel must never read
+    them; the plain version, which gathers every entry, gets 0 there)."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(6)
+    m, hkv = 4, 2
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        atol, rtol = TOL[dtype_name]
+        worst = 0.0
+        for d in (16, 64, 128, 256):
+            for g in (1, 3, 8):
+                for bs in (8, 16):
+                    lens = [0, 1, bs, bs + 1, m * bs]
+                    kp, vp, tables, mk = paged_inputs(
+                        torch, rng, len(lens), hkv, d, lens, dtype, dev,
+                        bs=bs, m=m)
+                    live = torch.arange(m, device=dev)[None, :] < torch.tensor(
+                        [-(-ln // bs) for ln in lens], device=dev)[:, None]
+                    wild = torch.where(live, tables, torch.where(
+                        torch.arange(m, device=dev) % 2 == 0,
+                        kp.shape[0] + 7, -3).to(torch.int32)[None, :]
+                        .expand_as(tables)).contiguous()
+                    cls = torch.tensor(lens, dtype=torch.int32, device=dev)
+                    q = mk(len(lens), 1, g * hkv, d)
+                    for softcap, qs in ((None, 1.0), (30.0, 8.0)):
+                        for fused in (True, False):
+                            got = ops.paged_attention(
+                                q * qs, kp, vp, wild, cls, softcap=softcap,
+                                fused=fused)
+                            want = ref.paged_attention_ref(
+                                (q * qs)[:, 0], kp, vp, tables, cls,
+                                softcap=softcap)[:, None]
+                            worst = max(worst, compare(
+                                torch, f"paged D{d} g{g} bs{bs}", got, want,
+                                dtype_name, quiet=True))
+                            if float(got[0].abs().max()) != 0.0:
+                                fail("paged_decode: zero-context row is not "
+                                     "exact zeros")
+                        if softcap:
+                            plain = ref.paged_attention_ref(
+                                (q * qs)[:, 0], kp, vp, tables, cls)[:, None]
+                            if torch.allclose(plain.float(), want.float(),
+                                              atol=atol, rtol=rtol):
+                                fail(f"paged D{d} g{g} bs{bs}: softcap does "
+                                     "not move the plain output beyond the "
+                                     "tolerance")
+        log(f"  paged_decode     {dtype_name:8s} edge sweep: D 16/64/128/256 "
+            f"x g 1/3/8 x bs 8/16 x ctx 0/1/bs/bs+1/M*bs, fused and "
+            f"per-head, softcap, out-of-pool ids past ctx: "
+            f"max_abs_err={worst:.3e} ok")
 
 
 def finish(results, host, main_err):
@@ -818,6 +937,10 @@ def main():
     gcfg = get_config("recurrentgemma-2b")
     log(f"[3/{PHASES} kernels] each kernel vs its plain version")
     results = kernel_phase(torch, dev, cfg)
+    paged_sweep_phase(torch, dev)
+    long = paged_long_phase(torch, dev)["paged_decode_long"]
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_tc_phase(torch, dev)
     results.update(wkv_phase(torch, dev, rcfg))
     results.update(rglru_phase(torch, dev, gcfg))
@@ -920,6 +1043,15 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name == "paged_decode":
+            kernels[-1]["graph_ms"] = r["graph_ms"]
+            kernels[-1]["long"] = {
+                key: long[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "graph_ms")}
+            # the plans the timed bf16 calls launched with
+            kernels[-1]["plans"] = {"serving": r["plan"],
+                                    "long": long["plan"]}
         if name == "flash_attention":
             # the same kernel at recurrentgemma's prefill shape (D 256)
             kernels[-1]["launches_by_path"] = flash_paths

@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: (dtype, pointers..., ints..., floats..., stream)
 SIGNATURES = {
-    "paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _F, _P],
+    "paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 15
+    + [_F, _F, _P],
     "paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8
     + [_F, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 11 + [_F, _F, _P],

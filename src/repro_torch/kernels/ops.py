@@ -11,10 +11,12 @@ or pads on the card.
 
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
-``last_plan`` holds the :class:`FlashPlan` of flash_attention's last launch.
+``last_plan`` holds the plan of flash_attention's (:class:`FlashPlan`) and
+paged_decode's (:class:`PagedDecodePlan`) last launch.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -22,7 +24,7 @@ import torch
 from repro_torch.kernels import ref
 
 # per-CTA tile limits of the scalar attention kernels (csrc/attn_tile.cuh:
-# paged decode, paged prefill, float32 flash)
+# paged prefill, float32 flash)
 _NT = 128
 _ACC = 16
 _MAX_SMEM = 232448            # bytes a Hopper block may use
@@ -37,6 +39,15 @@ _TC_KEYS = 64                # keys per K/V tile
 _TC_STAGES = 2               # K/V ring depth
 _TC_WARPGROUP = 128          # threads per consumer warpgroup (64 rows)
 _SMS = 132                   # H100 SXM streaming multiprocessors
+
+# paged decode (csrc/paged_decode.cu): query rows per CTA and 16-byte
+# chunks per lane are template arguments, the cluster at most the portable 8
+PAGED_DECODE_MAX_ROWS = 8
+PAGED_DECODE_MAX_HEAD_DIM = 256
+_PD_WARPS = 4                  # 4 beat 8 at both serving shapes (PERF.md §6)
+_PD_MAX_CLUSTER = 8
+_PD_RING_BYTES = 8192          # K/V ring per warp
+PAGED_DECODE_KEYS_PER_LANE = 2   # keys a lane folds per step
 
 launches = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0,
             "rwkv6_scan": 0, "rglru_scan": 0}
@@ -109,14 +120,76 @@ def paged_kv_fetches(b: int, hq: int, hkv: int, m: int, *,
     return b * (hkv if fused else hq) * m
 
 
+class PagedDecodePlan(NamedTuple):
+    """Launch plan of one paged_decode call.
+
+    Grid ``(cluster, hq // rows, b)`` in clusters of ``cluster`` CTAs along
+    x: one cluster per (slot, ``rows`` query heads of one kv-head), each
+    rank walking its share of the slot's live table entries.  ``warps``
+    per CTA split the rank's keys in steps of ``PAGED_DECODE_KEYS_PER_LANE
+    * 32 // lanes`` keys; ``lanes`` lanes hold one key, each ``chunks``
+    16-byte slices of D; ``smem`` dynamic shared bytes per CTA."""
+    grid: Tuple[int, int, int]
+    cluster: int
+    rows: int
+    warps: int
+    lanes: int
+    chunks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def paged_decode_plan(b: int, hq: int, hkv: int, d: int, bs: int, m: int,
+                      dtype: torch.dtype, fused: bool = True
+                      ) -> PagedDecodePlan:
+    """The grid, cluster, CTA shape and shared memory the CUDA paged-decode
+    kernel launches with; the kernel computes none of them itself.
+
+    Rows per CTA: the largest divisor of the GQA group g = hq / hkv up to
+    8 (fused), else 1.  Cluster size: the smallest power of two that
+    brings the CTA count to at least one per SM (132), at most 8 and at
+    most the table width ``m``.  D must be a multiple of 8 up to 256, so
+    that a lane's 16-byte slices tile it (``ValueError`` otherwise)."""
+    name = "paged_decode"
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {dtype} unsupported")
+    if d % 8 or not 8 <= d <= PAGED_DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} is not a multiple of 8 up "
+                         f"to {PAGED_DECODE_MAX_HEAD_DIM}")
+    g = hq // hkv
+    rows = max(r for r in range(1, PAGED_DECODE_MAX_ROWS + 1)
+               if g % r == 0) if fused else 1
+    heads = hq // rows
+    slices = d * dtype.itemsize // 16
+    chunks = -(-slices // 32)
+    # at least 2 lanes per key: the score reduction splits a lane pair
+    lanes = 32 if chunks > 1 else max(2, 1 << (slices - 1).bit_length())
+    cluster = 1
+    while (cluster < _PD_MAX_CLUSTER and 2 * cluster <= m
+           and b * heads * cluster < _SMS):
+        cluster *= 2
+    # per warp a ring of K and V slices, the warps' and the CTA's softmax
+    # states, the rank's table entries
+    smem = (_PD_WARPS * _PD_RING_BYTES
+            + 4 * ((_PD_WARPS + 1) * rows * (d + 2) + -(-m // cluster)))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: a table width of {m} needs {smem} bytes "
+                         "of shared memory per CTA, more than a Hopper "
+                         "block has")
+    return PagedDecodePlan((cluster, heads, b), cluster, rows, _PD_WARPS,
+                           lanes, chunks, smem)
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
                     softcap: Optional[float] = None, fused: bool = True):
     """Decode-time paged attention, model layout.
 
     q: (B, 1, Hq, D); k_pool, v_pool: (N, bs, Hkv, D); block_tables: (B, M)
     int32; context_lens: (B,) int32.  Returns (B, 1, Hq, D).  ``fused``
-    picks the GQA-fused grid (one CTA per (slot, kv-head)) over the
-    per-query-head grid.
+    picks the GQA-fused grid (a CTA holds the query heads of one kv-head,
+    so each K/V byte is read once per group) over the per-query-head grid
+    (one head per CTA).  On the card the launch follows
+    :func:`paged_decode_plan`, recorded in ``last_plan``.
     """
     name = "paged_decode"
     b, one, hq, d = q.shape
@@ -132,15 +205,20 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q[:, 0], k_pool, v_pool, block_tables,
                                        context_lens, softcap=softcap)[:, None]
-    gq = hq // hkv if fused else 1
-    _fits(name, gq, bs, d)
+    m = block_tables.shape[1]
+    plan = paged_decode_plan(b, hq, hkv, d, bs, max(m, 1), q.dtype, fused)
+    if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
+        raise ValueError(f"{name}: the kernel loads 16-byte slices and "
+                         "needs 16-byte-aligned q and pools")
     out = torch.empty_like(q)
     if b:
         _launch(name, _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
                 v_pool.data_ptr(), block_tables.data_ptr(),
                 context_lens.data_ptr(), out.data_ptr(), b, hq, hkv, d, bs,
-                block_tables.shape[1], n, int(fused), d ** -0.5,
-                float(softcap or 0.0), device=q.device)
+                m, n, *plan.grid[:2], plan.cluster, plan.rows,
+                32 * plan.warps, plan.lanes, plan.chunks, plan.smem,
+                d ** -0.5, float(softcap or 0.0), device=q.device)
+        last_plan[name] = plan
     return out
 
 

@@ -76,14 +76,27 @@ _ACTS = {
 }
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``w``, accumulated and returned in float32 and
+    not rounded to the operands' dtype: the reference's ``einsum(...,
+    preferred_element_type=jnp.float32)``.  Two bf16 operands on the card
+    take one ``aten::mm.dtype`` (reads bf16, writes float32, copies no
+    weight); elsewhere (the CPU has no kernel for it, or an operand is
+    float32) both are upcast, which leaves a float32 product as it was."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
 def mlp(params: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
-    """Dense (optionally gated) MLP.  Products run in the weights' dtype
-    (a bf16 GEMM accumulates in float32 and rounds its output); the
-    activation and gate run in float32."""
+    """Dense (optionally gated) MLP.  The up and gate products stay float32
+    into the activation (:func:`matmul_f32`); the hidden state is rounded
+    to the activation dtype once, before the down product."""
     fn = _ACTS[act]
-    h = torch.matmul(x, params["wi"]).float()
+    h = matmul_f32(x, params["wi"])
     if gated:
-        h = fn(torch.matmul(x, params["wg"]).float()) * h
+        h = fn(matmul_f32(x, params["wg"])) * h
     else:
         h = fn(h)
     return torch.matmul(h.to(x.dtype), params["wo"])

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.context import RunContext
+from repro_torch.models.layers import matmul_f32
 from repro_torch.models.spec import ParamSpec
 
 _C = 8.0
@@ -109,10 +110,10 @@ def rglru_step(xc: torch.Tensor, p: dict, h0: torch.Tensor):
 def rglru_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                       ctx: RunContext, cache: Optional[dict], mode: str):
     """x: (B,S,D) -> (y, new_cache). cache = {"h": (B,R) f32, "conv":
-    (B,W-1,R)}.  Products run in the weights' dtype (see ``layers.mlp``);
-    the gelu gate in float32."""
-    gate = F.gelu(torch.matmul(x, params["wy"]).float(),
-                  approximate="tanh").to(x.dtype)
+    (B,W-1,R)}.  The gelu gate takes the float32 product
+    (``layers.matmul_f32``), as the reference does; ``xb`` is rounded to
+    the activation dtype."""
+    gate = F.gelu(matmul_f32(x, params["wy"]), approximate="tanh").to(x.dtype)
     xb = torch.matmul(x, params["wx"])
     conv_carry = cache["conv"] if cache is not None else None
     xc, new_conv = _causal_conv(xb, params["conv_w"], params["conv_b"],

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.context import RunContext
+from repro_torch.models.layers import matmul_f32
 from repro_torch.models.spec import ParamSpec
 
 _LORA_RANK = 64
@@ -193,10 +194,9 @@ def rwkv_channel_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     xp = _shifted(x, prev, mode)
     xk = x + (xp - x) * params["mu_k"].to(x.dtype)
     xr = x + (xp - x) * params["mu_r"].to(x.dtype)
-    kk = torch.matmul(xk, params["wk"]).float()
-    kk = torch.square(torch.relu(kk)).to(x.dtype)
+    kk = torch.square(torch.relu(matmul_f32(xk, params["wk"]))).to(x.dtype)
     vv = torch.matmul(kk, params["wv"])
-    rr = torch.sigmoid(torch.matmul(xr, params["wr"]).float())
+    rr = torch.sigmoid(matmul_f32(xr, params["wr"]))
     out = (rr * vv.float()).to(x.dtype)
     new_cache = None
     if cache is not None or mode == "prefill":

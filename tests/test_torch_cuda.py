@@ -9,8 +9,9 @@ Elsewhere the tests skip: a CUDA kernel has no CPU mode (only
 test_flash_softcap_case_bites, a check of the inputs, runs on the CPU).  Shapes are the
 serving paths' (smollm-360m heads: Hq 15, Hkv 5, D 64; block 8; chunk 8;
 rwkv6-7b cohort prefill: B 8, S 64, H 64, N 64; recurrentgemma-2b: RG-LRU
-width 2560, attention Hq 10, Hkv 1, D 256, window 2048), and for the bf16
-tensor-core flash kernel every head dim it is built for.
+width 2560, attention Hq 10, Hkv 1, D 256, window 2048), for the bf16
+tensor-core flash kernel every head dim it is built for, and for paged
+decode head dims 16-256 with its edge cases.
 Tolerances: float32 atol 2e-5 / rtol 1e-5 (another summation order, TF32
 off), bfloat16 2e-2.
 """
@@ -231,6 +232,90 @@ def test_flash_attention_refuses_unbuilt_head_dim():
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_attention(q, k, v)
     assert ops.launches["flash_attention"] == before
+
+
+def _paged_wild_tables(tables, lens, bs, n):
+    """``tables`` with every entry at j >= ceil(ctx / bs) replaced by an id
+    outside the pool (n + 7 or -3): the kernel must never read them."""
+    wild = tables.copy()
+    for i, ln in enumerate(lens):
+        for j in range(-(-int(ln) // bs), tables.shape[1]):
+            wild[i, j] = n + 7 if j % 2 == 0 else -3
+    return wild
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_paged_decode_matches_plain_version(d):
+    """On a card: paged_decode against ``ref.paged_attention_ref`` (float32
+    atol 2e-5 / rtol 1e-5, bfloat16 2e-2) for GQA groups 1, 3 and 8 over 2
+    kv-heads, block 8 and 16, one slot each of ctx 0 (exact zeros), 1, bs,
+    bs + 1 and the full table (M 4: clusters with ranks that own no live
+    entry), fused and per-head grids, softcap 30 on scores of std 8 (the
+    cap moves the output beyond the tolerance), and out-of-pool table ids
+    past each context (never read; the plain version gets the clean
+    table)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    m, hkv = 4, 2
+    for dtype, atol, rtol in ((torch.float32, 2e-5, 1e-5),
+                              (torch.bfloat16, 2e-2, 2e-2)):
+        c = lambda x: _t(x).to(dev, dtype)         # noqa: E731
+        i = lambda x: _t(x).to(dev)                # noqa: E731
+        for g in (1, 3, 8):
+            for bs in (8, 16):
+                lens = (0, 1, bs, bs + 1, m * bs)
+                kp, vp, tables, cls = _paged_case(rng, 5, hkv, d, bs, lens)
+                wild = _paged_wild_tables(tables, lens, bs, kp.shape[0])
+                q = _randn(rng, (5, 1, g * hkv, d))
+                for softcap, qs in ((None, 1.0), (30.0, 8.0)):
+                    want = ref.paged_attention_ref(
+                        c(q * qs)[:, 0], c(kp), c(vp), i(tables), i(cls),
+                        softcap=softcap)[:, None]
+                    for fused in (True, False):
+                        before = ops.launches["paged_decode"]
+                        got = ops.paged_attention(
+                            c(q * qs), c(kp), c(vp), i(wild), i(cls),
+                            softcap=softcap, fused=fused)
+                        torch.cuda.synchronize()
+                        assert ops.launches["paged_decode"] == before + 1
+                        assert ops.last_plan["paged_decode"] == \
+                            ops.paged_decode_plan(5, g * hkv, hkv, d, bs, m,
+                                                  dtype, fused)
+                        torch.testing.assert_close(got.float(), want.float(),
+                                                   atol=atol, rtol=rtol)
+                        assert not got[0].any()
+                    if softcap:
+                        plain = ref.paged_attention_ref(
+                            c(q * qs)[:, 0], c(kp), c(vp), i(tables),
+                            i(cls))[:, None]
+                        assert not torch.allclose(plain.float(), want.float(),
+                                                  atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_paged_decode_refuses_what_it_cannot_load():
+    """On a card: a head dim that is no multiple of 8 and a q that is not
+    16-byte aligned raise ValueError without a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    dev = torch.device("cuda")
+    tables = torch.ones((2, 2), dtype=torch.int32, device=dev)
+    cls = torch.full((2,), 5, dtype=torch.int32, device=dev)
+    before = ops.launches["paged_decode"]
+    pool = torch.zeros((3, 4, 2, 12), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.paged_attention(torch.zeros((2, 1, 4, 12), device=dev), pool,
+                            pool, tables, cls)
+    pool = torch.zeros((3, 4, 2, 16), device=dev)
+    q = torch.zeros(2 * 4 * 16 + 1, device=dev)[1:].view(2, 1, 4, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.paged_attention(q, pool, pool, tables, cls)
+    assert ops.launches["paged_decode"] == before
 
 
 def _randn(rng, shape):

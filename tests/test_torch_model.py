@@ -7,6 +7,19 @@ two-layer reduced model), KV pools atol 1e-5; greedy tokens must be equal.
 Each port function runs through both of its paths: ``impl="torch"``
 (plain gathered attention) and ``impl="cuda"`` (the kernel wrappers, which
 run their plain versions on CPU tensors).
+
+bfloat16: ``layers.mlp`` (gated silu at smollm-360m's width, GeGLU at
+recurrentgemma-2b's) against the reference's on the same bf16 inputs and
+weights.  The reference keeps the up and gate products in float32 into the
+activation; the port must too.  Tolerance (:func:`assert_bf16_parity`):
+every output within one bf16 ulp of its magnitude, or of the output's RMS
+where cancellation leaves an element near zero (the two sides sum in
+another order, so an element near a rounding boundary may round the other
+way), and at most ``BF16_MAX_SHARE`` (2%) of the elements differing at
+all.  Rounding the products to bf16 before the activation, as the port
+once did, makes 61% of the outputs differ in both MLP cases; with float32
+products 0.15% (SwiGLU) and 0.81% (GeGLU, whose sums are 2.7x and 3x
+longer) do.
 """
 import jax
 import jax.numpy as jnp
@@ -15,10 +28,12 @@ import pytest
 import torch
 
 from repro.configs import get_config, reduced_config
+from repro.models import layers as jlayers
 from repro.models import model as jm
 from repro.models.context import RunContext as JContext
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced_config as t_reduced_config
+from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tm
 from repro_torch.models import weights
 from repro_torch.models.context import RunContext
@@ -31,6 +46,7 @@ M = 4
 CAP = BS * M
 N_BLOCKS = 1 + 3 * M
 IMPLS = ["torch", "cuda"]
+BF16_MAX_SHARE = 0.02
 _SETUP = {}
 
 
@@ -292,3 +308,60 @@ def test_supports_chunked_and_unported_paths():
                    _ctx("torch"), "train")
     with pytest.raises(ValueError, match="impl"):
         RunContext(torch.device("cpu"), "pallas")
+
+
+def bf16_pair(rng, shape, scale=1.0):
+    """One numpy draw rounded to bf16 once: (torch bf16, jax bf16), equal
+    bit for bit."""
+    t = torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).bfloat16()
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def assert_bf16_parity(got, want, ulps=1, max_share=BF16_MAX_SHARE):
+    """``got`` (torch) and ``want`` (jax), both bf16: every element within
+    ``ulps`` bf16 ulps (2**(e - 7) for a magnitude in [2**e, 2**(e + 1)))
+    of the largest of its two values and the reference output's RMS, and
+    at most ``max_share`` of the elements differing."""
+    g = got.float().numpy()
+    w = np.asarray(want.astype(jnp.float32))
+    assert g.shape == w.shape
+    rms = max(float(np.sqrt(np.mean(np.square(w)))), 1e-30)
+    mag = np.maximum(np.maximum(np.abs(g), np.abs(w)), rms)
+    ulp = ulps * np.exp2(np.floor(np.log2(mag)) - 7)
+    diff = np.abs(g - w)
+    assert (diff <= ulp).all(), f"{(diff > ulp).mean():.2%} beyond one ulp"
+    share = float((g != w).mean())
+    assert share <= max_share, f"{share:.2%} of the bf16 outputs differ"
+
+
+@pytest.mark.parametrize("act,d,f,rows", [("silu", 960, 2560, 64),
+                                          ("gelu", 2560, 7680, 8)],
+                         ids=["smollm-swiglu", "recurrentgemma-geglu"])
+def test_mlp_bf16_matches_reference(act, d, f, rows):
+    """bf16 gated MLP: the up and gate products stay float32 into the
+    activation, as the reference's ``preferred_element_type`` keeps them
+    (tolerance in the module docstring)."""
+    rng = np.random.default_rng(0)
+    tx, jx = bf16_pair(rng, (rows // 8, 8, d))
+    tp, jp = {}, {}
+    for name, shape in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d))):
+        tp[name], jp[name] = bf16_pair(rng, shape, shape[0] ** -0.5)
+    got = tlayers.mlp(tp, tx, act, True)
+    want = jlayers.mlp(jp, jx, act, True)
+    assert got.dtype == torch.bfloat16
+    assert_bf16_parity(got, want)
+
+
+def test_matmul_f32_keeps_float32_products():
+    """float32 operands give the ordinary product (no float32 result
+    moves); bf16 operands give the float32 product of their values."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((16, 7)).astype(np.float32))
+    assert torch.equal(tlayers.matmul_f32(x, w), torch.matmul(x, w))
+    got = tlayers.matmul_f32(x.bfloat16(), w.bfloat16())
+    assert got.dtype == torch.float32 and got.shape == (3, 5, 7)
+    torch.testing.assert_close(
+        got, torch.matmul(x.bfloat16().float(), w.bfloat16().float()),
+        atol=1e-5, rtol=1e-6)

@@ -14,6 +14,8 @@ atol 1e-4, RG-LRU state and ring KV atol 1e-5, through decode steps that
 wrap the window ring and on the linear (non-ring) cache.  Serving level:
 the port's contiguous-cohort ``ClientHandler`` must emit the reference
 handler's tokens under a fixed-time executor, with and without the ring.
+bfloat16: the block's gelu gate against the reference's, under
+``test_torch_model.assert_bf16_parity``'s tolerance.
 """
 import dataclasses
 
@@ -215,8 +217,9 @@ def test_flash_attention_head_dim_256_matches_pallas():
     # the CUDA tiles: in bfloat16, the tensor-core kernel's 128 flattened
     # (position, head) rows per CTA at the serving shape, in 192 KiB of
     # shared memory; in float32, the scalar kernel's 8 rows x 256 fill its
-    # accumulator.  The paged kernels' per-group tiles (10 rows) do not fit
-    # and are refused
+    # accumulator.  paged_prefill's per-group tile (10 rows) does not fit
+    # and is refused (paged_decode takes 5 of the 10 heads per CTA:
+    # tests/test_torch_paged_plan.py)
     plan = ops.flash_plan(8, 2048, 10, 1, 256, torch.bfloat16)
     assert (plan.kernel, plan.rows, plan.grid) == ("tensor_core", 128,
                                                    (160, 1, 8))
@@ -224,7 +227,7 @@ def test_flash_attention_head_dim_256_matches_pallas():
     assert ops.flash_plan(8, 2048, 10, 1, 256, torch.float32).rows == 8
     ops._fits("flash_attention", 8, 8, 256)
     with pytest.raises(ValueError, match="exceeds one CTA"):
-        ops._fits("paged_decode", 10, 8, 256)
+        ops._fits("paged_prefill", 10, 8, 256)
 
 
 # --------------------------------------------------------------------------- #
@@ -459,3 +462,44 @@ def test_cli_serves_recurrentgemma_contiguous_on_cpu(capsys):
                  "--requests", "3", "--new-tokens", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served=3" in out and "kv=contiguous" in out
+
+
+def test_rglru_gate_bf16_matches_reference():
+    """bf16: the gelu gate takes the float32 product of x and ``wy``, as
+    the reference's ``preferred_element_type`` keeps it.  A decode step of
+    ``rglru_block_apply`` at recurrentgemma-2b's width reduces to its gate
+    on both sides: ``wx`` and the conv bias are zero, so the recurrence's
+    input is zero; ``lam`` = -100 makes a = 1, so the carried h0 = 1 stays
+    1; ``wout`` is the identity; so y = 1 * gate, exactly.  Tolerance as
+    in ``test_torch_model.py`` (2% of elements may differ, each by one
+    ulp): 0.02% differ; rounding the product to bf16 first makes 29%
+    differ."""
+    from test_torch_model import assert_bf16_parity, bf16_pair
+    cfg = get_config(ARCH)
+    d, w, b = cfg.d_model, cfg.conv1d_width, 16
+    rng = np.random.default_rng(7)
+    tx, jx = bf16_pair(rng, (b, 1, d))
+    twy, jwy = bf16_pair(rng, (d, d), d ** -0.5)
+    fill = {"wx": np.zeros((d, d)), "conv_w": np.ones((w, d)),
+            "conv_b": np.zeros(d), "wa": np.zeros((d, d)), "ba": np.zeros(d),
+            "wi": np.zeros((d, d)), "bi": np.zeros(d),
+            "lam": np.full(d, -100.0), "wout": np.eye(d)}
+    tp = {k: _t(v.astype(np.float32)).bfloat16() for k, v in fill.items()}
+    jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in fill.items()}
+    tp["wy"], jp["wy"] = twy, jwy
+    h0 = np.ones((b, d), np.float32)
+    conv = np.zeros((b, w - 1, d), np.float32)
+    got, _ = trglru.rglru_block_apply(
+        tp, tx, t_get_config(ARCH), _ctx("torch"),
+        {"h": _t(h0), "conv": _t(conv).bfloat16()}, "decode")
+    want, _ = jrglru.rglru_block_apply(
+        jp, jx, cfg, JContext(),
+        {"h": jnp.asarray(h0), "conv": jnp.asarray(conv, jnp.bfloat16)},
+        "decode")
+    gate = jax.nn.gelu(jnp.einsum("bsd,dr->bsr", jx, jwy,
+                                  preferred_element_type=jnp.float32))
+    np.testing.assert_array_equal(np.asarray(want, np.float32),
+                                  np.asarray(gate.astype(jnp.bfloat16),
+                                             np.float32))
+    assert got.dtype == torch.bfloat16
+    assert_bf16_parity(got, want)

@@ -10,6 +10,8 @@ draws in both trees so every term of the recurrence is exercised; logits
 atol 1e-4, recurrent state atol 1e-5.  Serving level: the port's
 contiguous-cohort ``ClientHandler`` must emit the reference handler's
 tokens for reduced rwkv6 and smollm under a fixed-time executor.
+bfloat16: the channel mix against the reference's, under
+``test_torch_model.assert_bf16_parity``'s tolerance.
 """
 import dataclasses
 
@@ -417,3 +419,30 @@ def test_cli_serves_rwkv6_contiguous_on_cpu(capsys):
                  "--requests", "3", "--new-tokens", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served=3" in out and "kv=contiguous" in out
+
+
+def test_channel_mix_bf16_matches_reference():
+    """bf16 channel mix at a quarter of rwkv6-7b's width (d_model 1024,
+    d_ff 3584: its 3.5 ratio): ``kk`` is the square of the relu of the
+    float32 product, and ``rr`` the sigmoid of the float32 product, as the
+    reference's ``preferred_element_type`` keeps them.  Tolerance as in
+    ``test_torch_model.py`` (2% of elements may differ), but two ulps: the
+    output is round(rr * vv) with ``vv`` already rounded to bf16 and
+    rr < 1, so one ulp of ``vv`` is up to two of the output.  Here 0.41%
+    differ; rounding both products to bf16 first makes 64% differ."""
+    from test_torch_model import assert_bf16_parity, bf16_pair
+    d, f = 1024, 3584
+    rng = np.random.default_rng(8)
+    tx, jx = bf16_pair(rng, (2, 16, d))
+    tp, jp = {}, {}
+    for name in ("mu_k", "mu_r"):
+        mu = rng.uniform(0.0, 1.0, d).astype(np.float32)
+        tp[name], jp[name] = _t(mu), jnp.asarray(mu)
+    for name, shape in (("wk", (d, f)), ("wv", (f, d)), ("wr", (d, d))):
+        tp[name], jp[name] = bf16_pair(rng, shape, shape[0] ** -0.5)
+    tcfg = t_get_config("rwkv6-7b")
+    got, _ = trwkv.rwkv_channel_apply(tp, tx, tcfg, None, "prefill")
+    want, _ = jrwkv.rwkv_channel_apply(jp, jx, get_config("rwkv6-7b"), None,
+                                       "prefill")
+    assert got.dtype == torch.bfloat16
+    assert_bf16_parity(got, want, ulps=2)
