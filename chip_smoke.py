@@ -5,10 +5,11 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version, and
-drives the port's three serving paths at full width through
+drives the port's four serving paths at full width through
 ``ClientHandler`` on ``LMBackend`` with random weights from seed 0:
-smollm-360m (32 layers, d_model 960, 15/5 heads, vocab 49152) on the paged
-path; rwkv6-7b (32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336,
+smollm-360m (32 layers, d_model 960, 15/5 heads, vocab 49152) and
+qwen2.5-3b (36 layers, d_model 2048, 16/2 heads of 128, QKV bias, tied
+embedding, vocab 151936; 3.09e9 parameters) on the paged path; rwkv6-7b (32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336,
 vocab 65536; 7.53e9 parameters) and recurrentgemma-2b (26 layers: 18
 RG-LRU, 8 local attention with window 2048, 10 query heads over 1 KV head
 of 256; d_model 2560, d_ff 7680, vocab 256000; 2.89e9 parameters) on the
@@ -33,11 +34,18 @@ the kernel path against the plain path.  Phases:
               GQA groups 1/3/8, block 8 and 16, contexts 0, 1, bs, bs+1
               and the full table, both grids, softcap, and out-of-pool
               table ids past the context; paged decode at a long context:
-              qwen2.5-3b's heads, 8 slots near 8192 tokens, block 16);
+              qwen2.5-3b's heads, 8 slots near 8192 tokens, block 16;
+              paged prefill over an edge sweep (D 16-256, every built
+              bf16 head dim, g 1/3/8, bs 8/16, C 1/8/16/64, pos0
+              0/bs-1/300/3000, n_live 0/1/partial/C, softcap, out-of-pool
+              ids past each slot's reach, dead rows exact zeros) and at 8
+              slots near 8192 tokens with C 8, at qwen2.5-3b's heads (D
+              128, bs 16) and smollm-360m's (D 64, bs 8), the deep slots
+              and long shapes also within 5% of the output's RMS);
               CUDA-event times of kernel, plain version and, where one
-              exists, one PyTorch library call (flash and paged decode
-              also replayed from a CUDA graph, which leaves out the host's
-              launch path);
+              exists, one PyTorch library call (flash, paged decode and
+              paged prefill also replayed from a CUDA graph, which leaves
+              out the host's launch path);
 4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
               sharing a 32-token prefix, 16 new tokens each) through the
               default paged handler path in bfloat16, decode_window 4;
@@ -66,7 +74,14 @@ the kernel path against the plain path.  Phases:
               (asserted);
 9. parity   — the same trace in float32 with impl="cuda" and impl="torch"
               on the same weights, under phase 5's near-tie rule, at all
-              26 layers (tools/rglru_parity_depth.py sweeps the depth).
+              26 layers (tools/rglru_parity_depth.py sweeps the depth);
+10. qwen    — qwen2.5-3b: phase 4's trace and paged settings in bfloat16
+              (capacity 256, block 8, chunk 8, decode window 4), checked
+              as phase 4 is; its paged prefill runs C 8 x g 8 = 64 query
+              rows per kv-head at D 128;
+11. parity  — the same trace in float32 with impl="cuda" and impl="torch"
+              on the same weights, under phase 5's near-tie rule, at
+              QWEN_PARITY_LAYERS of the 36 layers.
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -85,6 +100,12 @@ H100_HBM_BW = 3.35e12            # B/s
 H100_PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FLOP/s, dense
 TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2),
        "state": (1e-5, 0.0)}
+# over thousands of keys an attention output has an RMS near TOL's atol
+# (about sqrt(e / keys) for standard-normal inputs), and one misread 64-key
+# tile moves an element by about sqrt(2 * 64 / keys) of that RMS: deep
+# contexts are also held to a max abs error of this share of the RMS
+RMS_SHARE = 0.05
+DEEP_POS0 = 3000                 # the prefill sweep's deep slots
 CAPACITY = 256
 PROMPT_PAD = 96
 MAX_BATCH = 8
@@ -99,6 +120,9 @@ RWKV_CAPACITY = RWKV_PROMPT_PAD + NEW_TOKENS
 # orders already disagree (tools/rwkv6_parity_depth.py)
 RWKV_PARITY_LAYERS = 16
 RG_PROMPT_PAD = 2048             # the window: the prefill fills the ring
+# phase 11 holds qwen2.5-3b's float32 tokens to the near-tie rule at this
+# depth (all 36 layers)
+QWEN_PARITY_LAYERS = 36
 RG_CAPACITY = RG_PROMPT_PAD + NEW_TOKENS
 # phase 3's long decode shape: 8 slots near an 8192-token context
 LONG_CTX = (8192, 8097, 8065, 8146, 8171, 8086, 8128, 8184)
@@ -109,7 +133,7 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 9
+PHASES = 11
 
 
 def fail(msg):
@@ -154,6 +178,21 @@ def paged_decode_cost(q, lens, hkv, d, bs, item):
     return byts, 4 * q.shape[2] * d * ctx_tok
 
 
+def paged_prefill_cost(q, p0, nl, hkv, bs, item):
+    """Bytes and flops of one chunked-prefill call: q read and out written,
+    each key and value at positions < pos0 + n_live read once per kv-head,
+    the table entries j < ceil((pos0 + n_live) / bs) and pos0, n_live read;
+    4 * D flops per (live row, admitted key) and q-head."""
+    d, hq = q.shape[3], q.shape[2]
+    ends = [int(p) + int(n) if n > 0 else 0 for p, n in zip(p0, nl)]
+    entries = sum(-(-e // bs) for e in ends)
+    byts = (2 * q.numel() * item + 2 * sum(ends) * hkv * d * item
+            + entries * 4 + 4 * 2 * len(ends))
+    flops = sum(4 * hq * d * (int(p) + c + 1)
+                for p, n in zip(p0, nl) for c in range(int(n)))
+    return byts, flops
+
+
 def compare(torch, name, got, want, dtype_name, quiet=False):
     atol, rtol = TOL[dtype_name]
     g, w = got.float(), want.float()
@@ -168,6 +207,18 @@ def compare(torch, name, got, want, dtype_name, quiet=False):
         fail(f"{name} ({dtype_name}) disagrees with its plain version "
              f"(max abs err {err}, atol {atol}, rtol {rtol})")
     return err
+
+
+def compare_rms(name, got, want):
+    """Fails unless max |got - want| <= RMS_SHARE * RMS(want); returns
+    that error over the RMS."""
+    g, w = got.float(), want.float()
+    rms = float(w.pow(2).mean().sqrt())
+    err = float((g - w).abs().max())
+    if not err <= RMS_SHARE * rms:
+        fail(f"{name}: max abs err {err} exceeds {RMS_SHARE} of the "
+             f"output's RMS {rms}")
+    return err / rms
 
 
 def time_ms(torch, fn, reps=50, host=None):
@@ -302,20 +353,16 @@ def kernel_phase(torch, dev, cfg):
     q = mk(2, CHUNK, hq, d)
     tp0 = torch.from_numpy(p0).to(dev)
     tnl = torch.from_numpy(nl).to(dev)
-    keys = int((p0 + nl).sum())
-    # blocks at j * bs >= pos0 + n_live are skipped, table entries with them
-    entries = int(sum(-(-int(e) // BLOCK) for e in p0 + nl))
-    byts = (2 * q.numel() * item + 2 * keys * hkv * d * item
-            + entries * 4 + 4 * (p0.size + nl.size))
-    flops = sum(4 * hq * d * (int(p) + c + 1)
-                for p, n in zip(p0, nl) for c in range(int(n)))
+    byts, flops = paged_prefill_cost(q, p0, nl, hkv, BLOCK, item)
+    prefill = lambda: ops.paged_prefill(q, kp, vp, tables, tp0,  # noqa
+                                        tnl)
     results["paged_prefill"] = dict(
-        ms=time_ms(torch, lambda: ops.paged_prefill(q, kp, vp, tables, tp0,
-                                                    tnl),
-                   host=host.setdefault("paged_prefill", {})),
+        ms=time_ms(torch, prefill, host=host.setdefault("paged_prefill", {})),
         plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
             q.transpose(1, 2), kp, vp, tables, tp0, tnl)),
-        bytes=byts, flops=flops, library_ms=None)
+        bytes=byts, flops=flops, library_ms=None,
+        graph_ms=graph_ms(torch, prefill))
+    results["paged_prefill"]["plan"] = launch_plan(ops, "paged_prefill")
     s = PROMPT_PAD
     q, k, v = (mk(MAX_BATCH, s, h, d) for h in (hq, hkv, hkv))
     byts = (2 * q.numel() + k.numel() + v.numel()) * item
@@ -442,6 +489,140 @@ def paged_sweep_phase(torch, dev):
             f"max_abs_err={worst:.3e} ok")
 
 
+def prefill_long_phase(torch, dev):
+    """paged_prefill at a long context: 8 slots of 8065-8192 tokens whose
+    last 8 are the chunk (C 8, n_live 8, pos0 = context - 8), for two head
+    layouts: qwen2.5-3b's (Hq 16 / Hkv 2, D 128, bs 16, table width 512;
+    66.6 MB of K/V, C * g * D = 8192, past a one-CTA query tile) and
+    smollm-360m's (Hq 15 / Hkv 5, D 64, bs 8, table width 1024; 83.3 MB).
+    Each vs its plain version in float32 and bfloat16, at TOL and within
+    RMS_SHARE of the output's RMS; then bf16 CUDA-event, host enqueue and
+    graph-replayed times (the K/V exceed the 50 MB L2)."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    lens = np.array(LONG_CTX, np.int32)
+    p0 = lens - CHUNK
+    nl = np.full(len(lens), CHUNK, np.int32)
+    rng = np.random.default_rng(7)
+    tp0 = torch.from_numpy(p0).to(dev)
+    tnl = torch.from_numpy(nl).to(dev)
+    results, host, main_err = {}, {}, {}
+    for key, hq, hkv, d, bs in (("paged_prefill_long_qwen", 16, 2, 128, 16),
+                                ("paged_prefill_long_smollm", 15, 5, 64, 8)):
+        m = -(-max(LONG_CTX) // bs)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            kp, vp, tables, mk = paged_inputs(torch, rng, len(lens), hkv, d,
+                                              lens, dtype, dev, bs=bs, m=m)
+            q = mk(len(lens), CHUNK, hq, d)
+            got = ops.paged_prefill(q, kp, vp, tables, tp0, tnl)
+            want = ref.paged_prefill_ref(q.transpose(1, 2), kp, vp, tables,
+                                         tp0, tnl).transpose(1, 2)
+            name = key.replace("paged_prefill_", "prefill ")
+            main_err[(key, dtype_name)] = compare(torch, name, got, want,
+                                                  dtype_name)
+            log(f"  {name:16s} {dtype_name:8s} max_abs_err / RMS = "
+                f"{compare_rms(name, got, want):.3e} ok")
+            del got, want
+        byts, flops = paged_prefill_cost(q, p0, nl, hkv, bs, 2)
+        prefill = lambda: ops.paged_prefill(q, kp, vp, tables,  # noqa
+                                            tp0, tnl)
+        results[key] = dict(
+            ms=time_ms(torch, prefill, host=host.setdefault(key, {})),
+            plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
+                q.transpose(1, 2), kp, vp, tables, tp0, tnl), reps=3),
+            bytes=byts, flops=flops, library_ms=None,
+            graph_ms=graph_ms(torch, prefill), peak=H100_PEAK["bfloat16"],
+            plan=launch_plan(ops, "paged_prefill"))
+        del kp, vp, q
+    finish(results, host, main_err)
+    return results
+
+
+def prefill_sweep_phase(torch, dev):
+    """paged_prefill vs its plain version over the edge cases: D 16, 64,
+    128, 256 in float32, every built head dim (64, 80, 96, 128, 256) in
+    bfloat16; GQA groups 1, 3, 8 over 2 kv-heads; block 8 and 16; chunks 1,
+    8, 16, 64; slots at pos0 0, bs - 1, 300 and DEEP_POS0 with n_live 0, 1,
+    partial and C (the deep slots give each of a cluster's 8 ranks several
+    64-key tiles, so the ring wraps and the softmax rescales across tiles;
+    their live rows are also held to RMS_SHARE of their RMS); softcap 30 on
+    scores of std 8 (q
+    scaled by 8, so the cap moves the output beyond the tolerance); table
+    entries past each slot's reach ceil((pos0 + n_live) / bs) hold ids
+    outside the pool (never read; the plain version gets 0 there); rows at
+    chunk positions >= n_live must be exact zeros."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(8)
+    hkv = 2
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        atol, rtol = TOL[dtype_name]
+        dims = ((16, 64, 128, 256) if dtype_name == "float32"
+                else ops.FLASH_TC_HEAD_DIMS)
+        worst, worst_rms, cases = 0.0, 0.0, 0
+        for d in dims:
+            for g in (1, 3, 8):
+                for bs in (8, 16):
+                    for c in (1, 8, 16, 64):
+                        p0 = np.array([0, bs - 1, 300, 300, bs - 1, 300,
+                                       DEEP_POS0, DEEP_POS0], np.int32)
+                        nl = np.array([c, 1, c // 2 + 1, 0, c, c, c,
+                                       c // 2 + 1], np.int32)
+                        m = -(-(DEEP_POS0 + c) // bs)
+                        kp, vp, tables, mk = paged_inputs(
+                            torch, rng, len(p0), hkv, d, p0 + c, dtype, dev,
+                            bs=bs, m=m)
+                        reach = torch.tensor(
+                            [-(-int(p + n) // bs) for p, n in zip(p0, nl)],
+                            device=dev)
+                        col = torch.arange(m, device=dev)
+                        wild = torch.where(
+                            col[None, :] < reach[:, None], tables,
+                            torch.where(col % 2 == 0, kp.shape[0] + 7, -3)
+                            .to(torch.int32)[None, :].expand_as(tables)
+                        ).contiguous()
+                        tp0 = torch.from_numpy(p0).to(dev)
+                        tnl = torch.from_numpy(nl).to(dev)
+                        q = mk(len(p0), c, g * hkv, d)
+                        for softcap, qs in ((None, 1.0), (30.0, 8.0)):
+                            got = ops.paged_prefill(q * qs, kp, vp, wild, tp0,
+                                                    tnl, softcap=softcap)
+                            want = ref.paged_prefill_ref(
+                                (q * qs).transpose(1, 2), kp, vp, tables, tp0,
+                                tnl, softcap=softcap).transpose(1, 2)
+                            worst = max(worst, compare(
+                                torch, f"prefill D{d} g{g} bs{bs} C{c}", got,
+                                want, dtype_name, quiet=True))
+                            cases += 1
+                            for i, n in enumerate(nl):
+                                if bool(got[i, n:].any()):
+                                    fail(f"paged_prefill D{d} g{g} bs{bs} "
+                                         f"C{c}: rows past n_live are not "
+                                         "exact zeros")
+                                if p0[i] == DEEP_POS0:
+                                    worst_rms = max(worst_rms, compare_rms(
+                                        f"prefill D{d} g{g} bs{bs} C{c} "
+                                        f"pos0 {DEEP_POS0}", got[i, :n],
+                                        want[i, :n]))
+                            if softcap:
+                                plain = ref.paged_prefill_ref(
+                                    (q * qs).transpose(1, 2), kp, vp, tables,
+                                    tp0, tnl).transpose(1, 2)
+                                if torch.allclose(plain.float(), want.float(),
+                                                  atol=atol, rtol=rtol):
+                                    fail(f"prefill D{d} g{g} bs{bs} C{c}: "
+                                         "softcap does not move the plain "
+                                         "output beyond the tolerance")
+        log(f"  paged_prefill    {dtype_name:8s} edge sweep: {cases} calls, "
+            f"D {'/'.join(map(str, dims))} x g 1/3/8 x bs 8/16 x C "
+            f"1/8/16/64, pos0 0/bs-1/300/{DEEP_POS0} x n_live "
+            f"0/1/partial/C, softcap, out-of-pool ids past reach: "
+            f"max_abs_err={worst:.3e}, at pos0 {DEEP_POS0} "
+            f"max_abs_err / RMS={worst_rms:.3e} ok")
+
+
 def finish(results, host, main_err):
     """Bound (larger of bytes over the HBM rate and operations over the
     peak rate of their type) and the serving-shape bf16 error per kernel;
@@ -460,7 +641,8 @@ def finish(results, host, main_err):
             f"{host[name]['ms']:.5f} ms{graph})  plain "
             f"{r['plain_ms']:.5f} ms  library "
             f"{lib if lib is None else round(lib, 5)}"
-            f" ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f" ms  bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+            f"{r['bytes']} bytes, {r['flops']} flops)")
 
 
 def wkv_inputs(torch, rng, b, s, h, n, dtype, dev):
@@ -897,6 +1079,39 @@ def rg_serving(torch, gcfg):
     return got
 
 
+def paged_serving(torch, cfg):
+    """Phases 4 and 10: ``cfg`` at full width in bf16 through the paged
+    handler (capacity 256, block 8, chunk 8, decode window 4) on phase 4's
+    trace; every request must finish its budget, the prefix cache must hit,
+    and paged prefill (C 8 x g query rows per kv-head: 64 at qwen2.5-3b's
+    D 128, past a one-CTA query tile), paged decode and flash must all have
+    launched.  Returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    t0 = time.perf_counter()
+    backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    n_par = model.n_params(cfg)
+    log(f"  {n_par} parameters, {n_par * 2 / 1e9:.2f} GB of bf16 weights "
+        f"drawn in {time.perf_counter() - t0:.2f} s")
+    ops.reset_launches()
+    toks, rep, h, wall, _ = serve(torch, backend, trace(cfg.vocab_size))
+    got = dict(ops.launches)
+    n_tok = sum(len(t) for t in toks.values())
+    log(f"  {rep.summary()}")
+    log(f"  wall {wall:.4f} s for {n_tok} tokens ({n_tok / wall:.3f} tok/s, "
+        f"Venue executor re-runs each step closure); prefix hit tokens "
+        f"{h.prefix_hit_tokens}, launches {got}; paged_prefill plan "
+        f"{launch_plan(ops, 'paged_prefill')}")
+    if h.prefix_hit_tokens <= 0:
+        fail("no prefix hit: the trace did not exercise the prefix cache")
+    for name in ("paged_decode", "paged_prefill", "flash_attention"):
+        if got[name] <= 0:
+            fail(f"{name} never launched on the {cfg.name} serving path")
+    return got
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -941,6 +1156,10 @@ def main():
     long = paged_long_phase(torch, dev)["paged_decode_long"]
     gc.collect()
     torch.cuda.empty_cache()
+    prefill_sweep_phase(torch, dev)
+    prefill_long = prefill_long_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_tc_phase(torch, dev)
     results.update(wkv_phase(torch, dev, rcfg))
     results.update(rglru_phase(torch, dev, gcfg))
@@ -950,21 +1169,9 @@ def main():
 
     log(f"[4/{PHASES} serving] smollm-360m full width, bfloat16, paged "
         "ClientHandler")
-    backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
-    ops.reset_launches()
-    toks, rep, h, wall, _ = serve(torch, backend, trace(cfg.vocab_size))
-    launches = dict(ops.launches)
-    n_tok = sum(len(t) for t in toks.values())
-    log(f"  {rep.summary()}")
-    log(f"  wall {wall:.4f} s for {n_tok} tokens ({n_tok / wall:.3f} tok/s, "
-        f"Venue executor re-runs each step closure); prefix hit tokens "
-        f"{h.prefix_hit_tokens}, launches {launches}")
-    if h.prefix_hit_tokens <= 0:
-        fail("no prefix hit: the trace did not exercise the prefix cache")
-    for name in ("paged_decode", "paged_prefill", "flash_attention"):
-        if launches[name] <= 0:
-            fail(f"{name} never launched on the serving path")
-    del backend
+    launches = paged_serving(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log(f"[5/{PHASES} parity] smollm-360m float32, impl=cuda vs impl=torch, "
         "same weights")
@@ -1026,10 +1233,35 @@ def main():
         "impl=cuda vs impl=torch, same weights")
     cohort_parity(torch, gcfg, gcfg.n_layers, RG_CAPACITY, rg_trace,
                   RG_PROMPT_PAD)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    flash_paths = {"smollm": launches["flash_attention"],
-                   "recurrentgemma": rg_launches["flash_attention"]}
-    launches["flash_attention"] = sum(flash_paths.values())
+    qcfg = get_config("qwen2.5-3b")
+    log(f"[10/{PHASES} qwen] qwen2.5-3b full width, bfloat16, paged "
+        "ClientHandler")
+    qwen_launches = paged_serving(torch, qcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[11/{PHASES} parity] qwen2.5-3b float32 (full width), impl=cuda "
+        "vs impl=torch, same weights")
+    q32 = dataclasses.replace(qcfg, dtype="float32")
+    params = model.init(q32, torch.Generator(device=dev).manual_seed(0), dev)
+    log(f"  first {QWEN_PARITY_LAYERS} of {qcfg.n_layers} layers")
+    parity(torch, *cut_depth(model, q32, params, QWEN_PARITY_LAYERS),
+           CAPACITY, trace, PROMPT_PAD)
+    del params
+
+    # launches per serving path, each counted from 0 over its own run
+    by_path = {
+        name: {"smollm": launches[name], "qwen": qwen_launches[name]}
+        for name in ("paged_decode", "paged_prefill")}
+    by_path["flash_attention"] = {
+        "smollm": launches["flash_attention"],
+        "recurrentgemma": rg_launches["flash_attention"],
+        "qwen": qwen_launches["flash_attention"]}
+    for name, paths in by_path.items():
+        launches[name] = sum(paths.values())
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
     launches["rglru_scan"] = rg_launches["rglru_scan"]
     kernels = []
@@ -1043,6 +1275,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name in by_path:
+            kernels[-1]["launches_by_path"] = by_path[name]
         if name == "paged_decode":
             kernels[-1]["graph_ms"] = r["graph_ms"]
             kernels[-1]["long"] = {
@@ -1052,9 +1286,21 @@ def main():
             # the plans the timed bf16 calls launched with
             kernels[-1]["plans"] = {"serving": r["plan"],
                                     "long": long["plan"]}
+        if name == "paged_prefill":
+            kernels[-1]["graph_ms"] = r["graph_ms"]
+            # the same kernel at 8 slots near 8192 tokens, two head layouts
+            for key, lr in prefill_long.items():
+                kernels[-1][key.replace("paged_prefill_", "")] = {
+                    k: lr[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "graph_ms", "bytes",
+                        "flops")}
+            kernels[-1]["plans"] = {
+                "serving": r["plan"],
+                **{key.replace("paged_prefill_", ""): lr["plan"]
+                   for key, lr in prefill_long.items()}}
         if name == "flash_attention":
             # the same kernel at recurrentgemma's prefill shape (D 256)
-            kernels[-1]["launches_by_path"] = flash_paths
             kernels[-1]["graph_ms"] = r["graph_ms"]
             kernels[-1]["d256"] = {
                 key: d256[key] for key in (

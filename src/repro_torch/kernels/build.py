@@ -33,7 +33,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "paged_decode": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 15
     + [_F, _F, _P],
-    "paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8
+    "paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 15
     + [_F, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 11 + [_F, _F, _P],
     "rwkv6_scan": [_I] + [_P] * 8 + [_I] * 4 + [_P],

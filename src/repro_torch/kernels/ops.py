@@ -11,8 +11,9 @@ or pads on the card.
 
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
-``last_plan`` holds the plan of flash_attention's (:class:`FlashPlan`) and
-paged_decode's (:class:`PagedDecodePlan`) last launch.
+``last_plan`` holds the plan of flash_attention's (:class:`FlashPlan`),
+paged_decode's (:class:`PagedDecodePlan`) and paged_prefill's
+(:class:`PagedPrefillPlan`) last launch.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from repro_torch.kernels import ref
 
 # per-CTA tile limits of the scalar attention kernels (csrc/attn_tile.cuh:
-# paged prefill, float32 flash)
+# float32 paged prefill and flash)
 _NT = 128
 _ACC = 16
 _MAX_SMEM = 232448            # bytes a Hopper block may use
@@ -49,6 +50,21 @@ _PD_MAX_CLUSTER = 8
 _PD_RING_BYTES = 8192          # K/V ring per warp
 PAGED_DECODE_KEYS_PER_LANE = 2   # keys a lane folds per step
 
+# paged prefill (csrc/paged_prefill.cu): bf16 row tiles on the tensor-core
+# kernel's 64-key tiles (_TC_KEYS), 128 rows only past 128 (two warpgroups
+# share each K/V tile; at 96-128 rows two 64-row CTAs were faster), split
+# over a cluster of at most 8 until two CTAs per SM are in flight (a CTA
+# walks its key tiles one after the other); a third ring stage only where
+# two CTAs still fit an SM's 228 KB of shared memory (PERF.md §6: it wins
+# 3-6% at smollm's heads over 2048-8192 tokens, and costs 48-59% where it
+# leaves one CTA per SM); float32 row tiles over attn_tile.cuh, 32 keys
+# staged per step
+_PP_MAX_CLUSTER = 8
+_PP_CTAS_PER_SM = 2
+_PP_SMEM_PER_CTA = 233472 // _PP_CTAS_PER_SM - 1024
+_PP_TWO_WARPGROUPS = 128       # flattened rows past which a tile has 128
+_PP_SCALAR_KEYS = 32
+
 launches = {"paged_decode": 0, "paged_prefill": 0, "flash_attention": 0,
             "rwkv6_scan": 0, "rglru_scan": 0}
 last_plan = {}
@@ -66,8 +82,8 @@ def _smem_bytes(rows: int, keys: int, d: int) -> int:
 def _check(name: str, floats, ints=(), *, d: int):
     """Raise unless every float input is a contiguous float32/bfloat16
     tensor of one dtype, every int input a contiguous int32 tensor, all on
-    one device.  Whether a head dim fits a kernel's CTA tile is
-    :func:`_fits`'s call, per kernel."""
+    one device.  Whether a head dim fits a kernel's CTA tile is each
+    kernel's plan's call."""
     dev = floats[0].device
     dtype = floats[0].dtype
     if dtype not in _DTYPES:
@@ -222,6 +238,97 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     return out
 
 
+class PagedPrefillPlan(NamedTuple):
+    """Launch plan of one paged_prefill call.
+
+    ``kernel`` is "tensor_core" (bfloat16: grid ``(cluster * tiles, Hkv,
+    B)`` in clusters of ``cluster`` CTAs along x, one cluster per ``rows``
+    (64 or 128) flattened (chunk position, q-head) rows of one (slot,
+    kv-head), each rank walking its share of the slot's live table entries
+    in ``keys``-key tiles through a ring of ``stages``) or "scalar"
+    (float32: grid ``(tiles, Hkv, B)``, at most 2048 / D rows per CTA,
+    ``keys`` keys staged per step, cluster 1, stages 1); ``threads`` per
+    CTA, ``smem`` dynamic shared bytes per CTA."""
+    kernel: str
+    grid: Tuple[int, int, int]
+    cluster: int
+    rows: int
+    threads: int
+    keys: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def paged_prefill_plan(b: int, c: int, hq: int, hkv: int, d: int, bs: int,
+                       m: int, dtype: torch.dtype, *,
+                       cluster: Optional[int] = None,
+                       rows: Optional[int] = None,
+                       stages: Optional[int] = None) -> PagedPrefillPlan:
+    """The kernel body, grid, cluster, CTA shape, key tile, ring depth and
+    shared memory the CUDA paged-prefill kernel launches with; the kernel
+    computes none of them itself.
+
+    bfloat16 takes the tensor-core kernel (head dims
+    :data:`FLASH_TC_HEAD_DIMS`, else ``ValueError``): 128-row tiles where
+    C * g > 128, else 64; the cluster is the smallest power of two that
+    brings the CTA count to at least two per SM (264), at most 8 and at
+    most the table width ``m``; three ring stages where two such CTAs fit
+    an SM's shared memory, else two.  ``cluster`` (1-8), ``rows`` (64 or
+    128) and ``stages`` (2 or 3) override that choice, to time other plans
+    (``tools/paged_prefill_probe.py``); grid and shared memory follow.
+    float32 takes the scalar kernel: row tiles of min(C * g, 2048 // d,
+    128) rows, 32 keys per step."""
+    name = "paged_prefill"
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {dtype} unsupported")
+    rows_all = c * (hq // hkv)
+    if dtype == torch.bfloat16:
+        if d not in FLASH_TC_HEAD_DIMS:
+            raise ValueError(f"{name}: the bfloat16 kernel is built for head "
+                             f"dims {FLASH_TC_HEAD_DIMS}, not {d}")
+        if rows is None:
+            rows = 128 if rows_all > _PP_TWO_WARPGROUPS else 64
+        if rows not in (64, 128):
+            raise ValueError(f"{name}: rows per CTA {rows} is not 64 or 128")
+        tiles = -(-rows_all // rows)
+        if cluster is None:
+            cluster = 1
+            while (cluster < _PP_MAX_CLUSTER and 2 * cluster <= m
+                   and b * hkv * tiles * cluster < _PP_CTAS_PER_SM * _SMS):
+                cluster *= 2
+        if not 1 <= cluster <= _PP_MAX_CLUSTER:
+            raise ValueError(f"{name}: cluster {cluster} outside "
+                             f"1..{_PP_MAX_CLUSTER}")
+        dp = -(-d // 64) * 64
+        # alignment, Q, the K/V ring, the merge's m and l, the table share
+        fixed = 1024 + 2 * dp * rows + 8 * rows + 4 * -(-m // cluster)
+        if stages is None:
+            stages = 3
+            if fixed + 4 * dp * _TC_KEYS * stages > _PP_SMEM_PER_CTA:
+                stages = 2
+        if stages not in (2, 3):
+            raise ValueError(f"{name}: ring stages {stages} is not 2 or 3")
+        smem = fixed + 4 * dp * _TC_KEYS * stages
+        if smem > _MAX_SMEM:
+            raise ValueError(f"{name}: a table width of {m} needs {smem} "
+                             "bytes of shared memory per CTA, more than a "
+                             "Hopper block has")
+        return PagedPrefillPlan("tensor_core", (cluster * tiles, hkv, b),
+                                cluster, rows, rows // 64 * _TC_WARPGROUP,
+                                _TC_KEYS, stages, smem)
+    rows = min(rows_all, _NT * _ACC // d, _NT)
+    if rows < 1:
+        raise ValueError(f"{name}: head_dim {d} exceeds one CTA's "
+                         f"{_NT * _ACC}-element accumulator")
+    smem = _smem_bytes(rows, _PP_SCALAR_KEYS, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: a {rows}x{d} tile needs more shared "
+                         "memory than a Hopper block has")
+    return PagedPrefillPlan("scalar", (-(-rows_all // rows), hkv, b), 1, rows,
+                            _NT, _PP_SCALAR_KEYS, 1, smem)
+
+
 def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
                   softcap: Optional[float] = None):
     """Chunked-prefill paged attention, model layout.
@@ -229,7 +336,8 @@ def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
     q: (B, C, Hq, D) one C-token chunk per slot (its KV already scattered
     into the pool); pools (N, bs, Hkv, D); block_tables (B, M) int32; pos0,
     n_live (B,) int32.  Returns (B, C, Hq, D); rows at chunk positions
-    >= n_live are exact zeros.
+    >= n_live are exact zeros.  Any C: on the card the launch follows
+    :func:`paged_prefill_plan`, recorded in ``last_plan``.
     """
     name = "paged_prefill"
     b, c, hq, d = q.shape
@@ -245,14 +353,21 @@ def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
         return ref.paged_prefill_ref(q.transpose(1, 2), k_pool, v_pool,
                                      block_tables, pos0, n_live,
                                      softcap=softcap).transpose(1, 2)
-    _fits(name, c * (hq // hkv), bs, d)
+    m = block_tables.shape[1]
+    plan = paged_prefill_plan(b, c, hq, hkv, d, bs, max(m, 1), q.dtype)
+    if plan.kernel == "tensor_core" and any(
+            x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
+        raise ValueError(f"{name}: the bfloat16 kernel copies 16-byte "
+                         "chunks and needs 16-byte-aligned q and pools")
     out = torch.empty_like(q)
-    if b:
+    if b and c:
         _launch(name, _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
                 v_pool.data_ptr(), block_tables.data_ptr(), pos0.data_ptr(),
-                n_live.data_ptr(), out.data_ptr(), b, c, hq, hkv, d, bs,
-                block_tables.shape[1], n, d ** -0.5, float(softcap or 0.0),
-                device=q.device)
+                n_live.data_ptr(), out.data_ptr(), b, c, hq, hkv, d, bs, m, n,
+                plan.grid[0], plan.cluster, plan.rows, plan.threads,
+                plan.keys, plan.stages, plan.smem, d ** -0.5,
+                float(softcap or 0.0), device=q.device)
+        last_plan[name] = plan
     return out
 
 

@@ -11,7 +11,7 @@ serving paths' (smollm-360m heads: Hq 15, Hkv 5, D 64; block 8; chunk 8;
 rwkv6-7b cohort prefill: B 8, S 64, H 64, N 64; recurrentgemma-2b: RG-LRU
 width 2560, attention Hq 10, Hkv 1, D 256, window 2048), for the bf16
 tensor-core flash kernel every head dim it is built for, and for paged
-decode head dims 16-256 with its edge cases.
+decode and paged prefill head dims 16-256 with their edge cases.
 Tolerances: float32 atol 2e-5 / rtol 1e-5 (another summation order, TF32
 off), bfloat16 2e-2.
 """
@@ -316,6 +316,101 @@ def test_paged_decode_refuses_what_it_cannot_load():
     with pytest.raises(ValueError, match="aligned"):
         ops.paged_attention(q, pool, pool, tables, cls)
     assert ops.launches["paged_decode"] == before
+
+
+def _prefill_case(rng, b, c, hq, hkv, d, bs, pos0, n_live):
+    """Pool, clean tables (the plain version's), tables whose entries past
+    each slot's reach ceil((pos0 + n_live) / bs) hold ids outside the pool
+    (the kernel must never read them), and q (B, C, Hq, D)."""
+    kp, vp, tables, _ = _paged_case(rng, b, hkv, d, bs,
+                                    [p + c for p in pos0])
+    reach = [-(-(p + n) // bs) for p, n in zip(pos0, n_live)]
+    wild = _paged_wild_tables(tables, [r * bs for r in reach], bs,
+                              kp.shape[0])
+    return kp, vp, tables, wild, _randn(rng, (b, c, hq, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 80, 96, 128, 256])
+def test_paged_prefill_matches_plain_version(d):
+    """On a card: paged_prefill against ``ref.paged_prefill_ref`` (float32
+    atol 2e-5 / rtol 1e-5, bfloat16 2e-2; D 16 float32 only: the bf16
+    kernel is built for the configs' head dims) for GQA groups 1, 3 and 8
+    (the 64-row tile of qwen2.5-3b's heads at C 8), block 8 and 16, chunks
+    1, 8 and 64 (512 rows per kv-head at g 8: four 128-row tiles), slots at
+    pos0 0, bs - 1, 300 and 3000 with n_live 0, 1, partial and C, and
+    out-of-pool table ids past each slot's reach; rows at chunk positions
+    >= n_live must be exact zeros.  At pos0 3000 each of the cluster's 8
+    ranks walks several 64-key tiles (the ring wraps, the softmax rescales
+    across tiles) and the output's RMS is near atol, so those slots' live
+    rows are also held to a max abs error of 0.05 of their RMS (one misread
+    tile moves an element by about sqrt(2 * 64 / 3000) of it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    hkv = 2
+    dtypes = [(torch.float32, 2e-5, 1e-5)]
+    if d in ops.FLASH_TC_HEAD_DIMS:
+        dtypes.append((torch.bfloat16, 2e-2, 2e-2))
+    for dtype, atol, rtol in dtypes:
+        c_ = lambda x: _t(x).to(dev, dtype)        # noqa: E731
+        i_ = lambda x: _t(x).to(dev)               # noqa: E731
+        for g in (1, 3, 8):
+            for bs in (8, 16):
+                for c in (1, 8, 64):
+                    pos0 = np.array([0, bs - 1, 300, 300, bs - 1, 3000,
+                                     3000], np.int32)
+                    n_live = np.array([c, 1, max(1, c // 2 + 1), 0, c, c,
+                                       max(1, c // 2 + 1)], np.int32)
+                    b = len(pos0)
+                    kp, vp, tables, wild, q = _prefill_case(
+                        rng, b, c, g * hkv, hkv, d, bs, pos0, n_live)
+                    before = ops.launches["paged_prefill"]
+                    got = ops.paged_prefill(c_(q), c_(kp), c_(vp), i_(wild),
+                                            i_(pos0), i_(n_live))
+                    torch.cuda.synchronize()
+                    assert ops.launches["paged_prefill"] == before + 1
+                    assert ops.last_plan["paged_prefill"] == \
+                        ops.paged_prefill_plan(b, c, g * hkv, hkv, d, bs,
+                                               tables.shape[1], dtype)
+                    want = ref.paged_prefill_ref(
+                        c_(q).transpose(1, 2), c_(kp), c_(vp), i_(tables),
+                        i_(pos0), i_(n_live)).transpose(1, 2)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               atol=atol, rtol=rtol)
+                    for s, n in enumerate(n_live):
+                        assert not got[s, n:].any()
+                        if pos0[s] == 3000:
+                            w = want[s, :n].float()
+                            err = (got[s, :n].float() - w).abs().max()
+                            assert err <= 0.05 * w.pow(2).mean().sqrt()
+
+
+@pytest.mark.cuda
+def test_paged_prefill_refuses_unbuilt_head_dim():
+    """On a card: a bf16 call at a head dim the tensor-core kernel was not
+    built for raises ValueError without a launch (the float32 body takes
+    it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the same comparison")
+    dev = torch.device("cuda")
+    tables = torch.ones((2, 2), dtype=torch.int32, device=dev)
+    pos0 = torch.zeros((2,), dtype=torch.int32, device=dev)
+    n_live = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    q = torch.zeros((2, 4, 4, 48), dtype=torch.bfloat16, device=dev)
+    pool = torch.zeros((3, 4, 2, 48), dtype=torch.bfloat16, device=dev)
+    before = ops.launches["paged_prefill"]
+    with pytest.raises(ValueError, match="head dims"):
+        ops.paged_prefill(q, pool, pool, tables, pos0, n_live)
+    assert ops.launches["paged_prefill"] == before
+    out = ops.paged_prefill(q.float(), pool.float(), pool.float(), tables,
+                            pos0, n_live)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_prefill"] == before + 1
+    assert not out.any()
 
 
 def _randn(rng, shape):

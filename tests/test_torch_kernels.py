@@ -150,6 +150,9 @@ PREFILL_CASES = [
     (3, 6, 2, 16, 4, 8, (0, 5, 9), (8, 3, 0), None),   # dead row, g=3
     (2, 3, 3, 16, 4, 4, (2, 0), (4, 1), 25.0),         # softcap
     (2, 15, 5, 64, 8, 8, (32, 3), (8, 5), None),       # smollm geometry
+    # qwen2.5-3b geometry (C * g * D = 8192, past the old per-CTA tile)
+    (2, 16, 2, 128, 16, 8, (40, 9), (8, 6), None),
+    (2, 15, 5, 64, 8, 16, (19, 0), (16, 11), None),    # smollm, chunk 16
 ]
 
 

@@ -29,16 +29,16 @@ def _fixed(c, f, a):
     return f(*a), 0.05
 
 
-def _backends():
-    """(reference backend, port params) on the reference's PRNGKey(0)
-    weights, built once per worker."""
-    if not _BACKENDS:
-        cfg = reduced_config(get_config("smollm-360m"))
+def _backends(arch="smollm-360m"):
+    """(reference backend, port params) of reduced ``arch`` on the
+    reference's PRNGKey(0) weights, built once per worker."""
+    if arch not in _BACKENDS:
+        cfg = reduced_config(get_config(arch))
         jb = jserve.LMBackend(cfg, capacity=CAP)
-        tcfg = t_reduced_config(t_get_config("smollm-360m"))
+        tcfg = t_reduced_config(t_get_config(arch))
         tp = weights.from_jax(jax.tree.map(np.asarray, jb.params), tcfg)
-        _BACKENDS.update(jb=jb, tcfg=tcfg, tp=tp)
-    return _BACKENDS
+        _BACKENDS[arch] = dict(jb=jb, tcfg=tcfg, tp=tp)
+    return _BACKENDS[arch]
 
 
 def _trace(seed, n=8, tail=4, new=6, gap=0.08, restore_pairs=False):
@@ -55,8 +55,8 @@ def _trace(seed, n=8, tail=4, new=6, gap=0.08, restore_pairs=False):
     return out
 
 
-def _run(kind, trace, impl="torch", **kw):
-    b = _backends()
+def _run(kind, trace, impl="torch", arch="smollm-360m", **kw):
+    b = _backends(arch)
     if kind == "jax":
         backend = b["jb"]
         reqs = [JRequest(i, p, n, arrival_t=t) for i, p, n, t in trace]
@@ -107,6 +107,24 @@ def test_port_handler_tokens_match_reference(name):
     assert trep.restored_tokens == jrep.restored_tokens
     if name == "tight_pool":
         assert trep.preemptions > 0 and trep.restored_tokens > 0
+
+
+@pytest.mark.parametrize("impl", ["torch", "cuda"])
+def test_port_handler_qwen_tokens_match_reference(impl):
+    """Reduced qwen2.5-3b (GQA group 8, QKV bias, tied embedding) through
+    the paged handler at its defaults (block 8, chunk 8, mixed dispatch):
+    the chunked prefill runs C * g = 64 query rows per kv-head; per-request
+    tokens identical to the reference handler's, through the plain path
+    and the kernel wrappers."""
+    tcfg = _backends("qwen2.5-3b")["tcfg"]
+    assert (tcfg.n_heads // tcfg.n_kv_heads, tcfg.qkv_bias,
+            tcfg.tie_embeddings) == (8, True, True)
+    kw = dict(max_batch=4, prompt_pad=16, decode_window=2)
+    trace = _trace(4, restore_pairs=True)
+    want, jrep = _run("jax", trace, arch="qwen2.5-3b", **kw)
+    got, trep = _run("torch", trace, impl=impl, arch="qwen2.5-3b", **kw)
+    assert len(want) == 8 and got == want
+    assert trep.prefix_hit_rate == jrep.prefix_hit_rate > 0
 
 
 def test_port_handler_kernel_wrappers_match_plain_path():
