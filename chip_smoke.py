@@ -23,9 +23,10 @@ the kernel path against the plain path.  Phases:
               2e-2, rtol 2e-2), with edge cases (zero-context row,
               n_live == 0 row, scattered tables, softcap, sliding window,
               per-head decode grid; WKV: s0 None, one step, ragged S, N
-              16; RG-LRU: the cohort-prefill shape B 8, S 2048, R 2560
-              with and without h0, one step, ragged S, R 96, float32 and
-              bfloat16 outputs, final state within 1e-5; flash at
+              16, 8 and 37, and the long shape B 8, S 2048; RG-LRU: the
+              cohort-prefill shape B 8, S 2048, R 2560 with and without
+              h0, one step, ragged S, R 96, float32 and bfloat16 outputs,
+              final state within 1e-5; flash at
               recurrentgemma's shape, D 256, MQA 10:1, window 2048; the
               bf16 tensor-core flash kernel at every head dim it is built
               for (64, 80, 96, 128, 256) with GQA groups of 1, 3 and 10,
@@ -43,9 +44,9 @@ the kernel path against the plain path.  Phases:
               128, bs 16) and smollm-360m's (D 64, bs 8), the deep slots
               and long shapes also within 5% of the output's RMS);
               CUDA-event times of kernel, plain version and, where one
-              exists, one PyTorch library call (flash, paged decode and
-              paged prefill also replayed from a CUDA graph, which leaves
-              out the host's launch path);
+              exists, one PyTorch library call (every kernel also
+              replayed from a CUDA graph, which leaves out the host's
+              launch path; the WKV scan also at its long shape);
 4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
               sharing a 32-token prefix, 16 new tokens each) through the
               default paged handler path in bfloat16, decode_window 4;
@@ -113,6 +114,7 @@ NEW_TOKENS = 16
 BLOCK = 8
 CHUNK = 8
 RWKV_PROMPT_PAD = 64             # the plain WKV path needs S % 64 == 0
+WKV_LONG_S = 2048                # phase 3's long WKV shape: 8 x 2048 tokens
 RWKV_CAPACITY = RWKV_PROMPT_PAD + NEW_TOKENS
 # phase 7 holds tokens to the near-tie rule over the first 16 of the 32
 # layers: at all 32, this random-weight model turns float32 rounding into
@@ -647,20 +649,34 @@ def finish(results, host, main_err):
 
 def wkv_inputs(torch, rng, b, s, h, n, dtype, dev):
     """r, k, v ~ N(0, 1) in ``dtype``; float32 decays in (0.29, 0.99) (the
-    model computes w in float32); u, s0 ~ N(0, 1) float32."""
-    import numpy as np
-    mk = lambda *sh: torch.from_numpy(                     # noqa: E731
-        rng.standard_normal(sh).astype(np.float32)).to(dev)
+    model computes w in float32); u, s0 ~ N(0, 1) float32.  Drawn on the
+    device from a generator seeded by ``rng`` (the long shape is 67M
+    elements per tensor)."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    mk = lambda *sh: torch.randn(sh, generator=gen,        # noqa: E731
+                                 device=dev)
     r, k, v = (mk(b, s, h, n).to(dtype) for _ in range(3))
     w = torch.sigmoid(mk(b, s, h, n)) * 0.7 + 0.29
     return r, k, v, w, mk(h, n), mk(b, h, n, n)
 
 
+def wkv_cost(r, w, u, state):
+    """Bytes and flops of one WKV call from a zero state: r, k, v read and
+    y written in r's dtype, w read in float32, u read, the final state
+    written in float32 (no s0 read); 5 N flops per (b, t, h, column)."""
+    byts = (r.numel() * (4 * r.element_size() + w.element_size())
+            + u.numel() * 4 + state.numel() * 4)
+    return byts, 5 * r.numel() * r.shape[3]
+
+
 def wkv_phase(torch, dev, cfg):
     """rwkv6_scan vs ``ref.rwkv6_scan_ref``: the cohort-prefill shape
     (MAX_BATCH x RWKV_PROMPT_PAD, all heads) with and without s0, one step,
-    a ragged S and N 16; then CUDA-event times at the serving shape in
-    bf16 from a zero state, as the cohort prefill calls it."""
+    a ragged S, N 16, N 8 (rows padded to 64) and N 37 (no 16-byte copies;
+    S crossing two chunks), and the long shape (MAX_BATCH x WKV_LONG_S);
+    then CUDA-event, host-enqueue and graph-replayed times at the serving
+    and long shapes in bf16 from a zero state, as the cohort prefill calls
+    it, each plan held to the CTAs per SM the card reports for it."""
     import numpy as np
     from repro_torch.kernels import ops, ref
     h, n = cfg.n_heads, cfg.head_dim
@@ -673,7 +689,10 @@ def wkv_phase(torch, dev, cfg):
                                         (b, s, h, n, False),
                                         (2, 1, 4, n, True),
                                         (2, 37, 4, n, True),
-                                        (3, 40, 4, 16, True)):
+                                        (3, 40, 4, 16, True),
+                                        (2, 19, 3, 8, True),
+                                        (2, 35, 3, 37, False),
+                                        (b, WKV_LONG_S, h, n, False)):
             r, k, v, w, u, s0 = wkv_inputs(torch, rng, bb, ss, hh, nn, dtype,
                                            dev)
             y, s_final = ops.rwkv6_scan(r, k, v, w, u,
@@ -684,24 +703,36 @@ def wkv_phase(torch, dev, cfg):
             e = compare(torch, "rwkv6_scan", y, want_y.transpose(1, 2),
                         dtype_name)
             compare(torch, "rwkv6_scan state", s_final, want_s, "float32")
-            if (bb, ss) == (b, s) and not with_s0:
-                main_err[("rwkv6_scan", dtype_name)] = e
-    r, k, v, w, u, _ = wkv_inputs(torch, rng, b, s, h, n, torch.bfloat16,
-                                  dev)
-    zeros = torch.zeros((b, h, n, n), dtype=torch.float32, device=dev)
-    rt = [x.transpose(1, 2) for x in (r, k, v, w)]
-    # r, k, v read and y written in bf16, w read in float32, u read, the
-    # final state written in float32 (s0 None: no state read)
-    byts = (r.numel() * (4 * r.element_size() + w.element_size())
-            + u.numel() * 4 + zeros.numel() * 4)
-    host = {}
-    results = {"rwkv6_scan": dict(
-        ms=time_ms(torch, lambda: ops.rwkv6_scan(r, k, v, w, u),
-                   host=host.setdefault("rwkv6_scan", {})),
-        plain_ms=time_ms(torch, lambda: ref.rwkv6_scan_ref(*rt, u, zeros),
-                         reps=10),
-        bytes=byts, flops=5 * b * s * h * n * n, library_ms=None,
-        peak=H100_PEAK["float32"])}
+            if bb == b and not with_s0:
+                main_err[("rwkv6_scan" if ss == s else "rwkv6_scan_long",
+                          dtype_name)] = e
+            del r, k, v, w, y, want_y
+    torch.cuda.empty_cache()
+    results, host = {}, {}
+    for key, ss, reps, plain_reps in (("rwkv6_scan", s, 50, 10),
+                                      ("rwkv6_scan_long", WKV_LONG_S, 20, 2)):
+        r, k, v, w, u, _ = wkv_inputs(torch, rng, b, ss, h, n,
+                                      torch.bfloat16, dev)
+        zeros = torch.zeros((b, h, n, n), dtype=torch.float32, device=dev)
+        rt = [x.transpose(1, 2) for x in (r, k, v, w)]
+        byts, flops = wkv_cost(r, w, u, zeros)
+        scan = lambda: ops.rwkv6_scan(r, k, v, w, u)     # noqa: E731
+        scan()
+        plan = ops.last_plan["rwkv6_scan"]
+        resident = ops.rwkv6_scan_resident(plan, torch.bfloat16)
+        if resident < plan.ctas_per_sm:
+            fail(f"rwkv6_scan: the card holds {resident} CTAs per SM, the "
+                 f"plan counts on {plan.ctas_per_sm}")
+        results[key] = dict(
+            ms=time_ms(torch, scan, reps=reps, host=host.setdefault(key, {})),
+            graph_ms=graph_ms(torch, scan, reps=reps),
+            plan=dict(plan._asdict(), resident=resident),
+            plain_ms=time_ms(torch, lambda: ref.rwkv6_scan_ref(*rt, u, zeros),
+                             reps=plain_reps),
+            bytes=byts, flops=flops, library_ms=None,
+            peak=H100_PEAK["float32"])
+        del r, k, v, w, rt
+        torch.cuda.empty_cache()
     finish(results, host, main_err)
     return results
 
@@ -738,10 +769,11 @@ def rglru_phase(torch, dev, gcfg):
     # a and b read in float32, h written in bf16, h_last in float32
     byts = a.numel() * (4 + 4 + 2) + zeros.numel() * 4
     host = {}
+    scan = lambda: ops.rglru_scan(a, bv,                  # noqa: E731
+                                  out_dtype=torch.bfloat16)
     results = {"rglru_scan": dict(
-        ms=time_ms(torch, lambda: ops.rglru_scan(a, bv,
-                                                 out_dtype=torch.bfloat16),
-                   host=host.setdefault("rglru_scan", {})),
+        ms=time_ms(torch, scan, host=host.setdefault("rglru_scan", {})),
+        graph_ms=graph_ms(torch, scan),
         plain_ms=time_ms(torch, lambda: ref.rglru_scan_ref(a, bv, zeros),
                          reps=3),
         bytes=byts, flops=2 * a.numel(), library_ms=None,
@@ -1308,6 +1340,17 @@ def main():
                     "library_ms", "graph_ms")}
             # the plans the timed bf16 calls launched with
             kernels[-1]["plans"] = {"d64": r["plan"], "d256": d256["plan"]}
+        if name == "rwkv6_scan":
+            # the same kernel at 8 x 2048 tokens
+            lr = results["rwkv6_scan_long"]
+            kernels[-1]["graph_ms"] = r["graph_ms"]
+            kernels[-1]["long"] = {
+                key: lr[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "graph_ms", "bytes", "flops")}
+            kernels[-1]["plans"] = {"serving": r["plan"], "long": lr["plan"]}
+        if name == "rglru_scan":
+            kernels[-1]["graph_ms"] = r["graph_ms"]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,7 +36,7 @@ SIGNATURES = {
     "paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 15
     + [_F, _F, _P],
     "flash_attention": [_I, _P, _P, _P, _P] + [_I] * 11 + [_F, _F, _P],
-    "rwkv6_scan": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    "rwkv6_scan": [_I] + [_P] * 8 + [_I] * 9 + [_P],
     "rglru_scan": [_I] + [_P] * 5 + [_I] * 3 + [_P],
 }
 

@@ -12,8 +12,9 @@ or pads on the card.
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
 ``last_plan`` holds the plan of flash_attention's (:class:`FlashPlan`),
-paged_decode's (:class:`PagedDecodePlan`) and paged_prefill's
-(:class:`PagedPrefillPlan`) last launch.
+paged_decode's (:class:`PagedDecodePlan`), paged_prefill's
+(:class:`PagedPrefillPlan`) and rwkv6_scan's (:class:`WkvPlan`) last
+launch.
 """
 from __future__ import annotations
 
@@ -31,7 +32,24 @@ _ACC = 16
 _MAX_SMEM = 232448            # bytes a Hopper block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_WKV_MAX_N = 64              # state columns one rwkv6_scan thread holds
+# rwkv6_scan (csrc/rwkv6_scan.cu): N padded to _WKV_MAX_N; each consumer
+# lane holds _WKV_C columns x (_WKV_MAX_N / _WKV_R) rows of the state,
+# _WKV_R lanes per group of _WKV_C columns, beside one producer warp;
+# chunks of _WKV_CHUNK steps staged in a ring of _WKV_STAGES (16-step
+# chunks beat 8 by 2-4% at 2048 tokens and tie at 64; 2 stages tie 3, 4
+# and 6, PERF.md §6); the kernel's launch bounds (96 threads, 4 CTAs per
+# SM) cap a lane at 168 registers
+_WKV_MAX_N = 64
+_WKV_R = 8
+_WKV_C = 8
+_WKV_CHUNK = 16
+_WKV_STAGES = 2
+_WKV_REGS = 168
+_SM_SMEM = 233472             # shared bytes of one SM
+_SM_THREADS = 2048
+_SM_REGS = 65536
+_SM_CTAS = 32
+_CTA_SMEM_RESERVED = 1024     # bytes the card keeps per resident CTA
 
 # bf16 flash_attention, the tensor-core kernel (csrc/flash_attention.cu,
 # whose BK and two-stage ring these mirror)
@@ -449,14 +467,91 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out
 
 
+class WkvPlan(NamedTuple):
+    """Launch plan of one rwkv6_scan call.
+
+    Grid ``(H, B)``: one CTA per (batch, head) of ``threads`` lanes, 64
+    consumers and one producer warp.  ``r`` consumer lanes share each
+    group of ``c`` columns of the state (N padded to 64), lane q of a group
+    holding rows ``4 * (r * m + q) + e`` (m < 2, e < 4) of each.
+    ``chunk`` steps per ring stage, ``stages`` stages, ``smem`` dynamic
+    shared bytes per CTA, ``ctas_per_sm`` resident at once by threads,
+    shared memory and the 168-register cap of the kernel's launch bounds
+    (the card may fit more where the kernel needs fewer registers);
+    ``vec``: tensor copies (N 64)."""
+    grid: Tuple[int, int]
+    threads: int
+    r: int
+    c: int
+    chunk: int
+    stages: int
+    smem: int
+    ctas_per_sm: int
+    vec: bool
+
+
+@functools.lru_cache(maxsize=None)
+def rwkv6_scan_plan(b: int, s: int, h: int, n: int, dtype: torch.dtype, *,
+                    chunk: Optional[int] = None,
+                    stages: Optional[int] = None) -> WkvPlan:
+    """The grid, CTA shape, chunk, ring depth and shared memory the CUDA
+    WKV kernel launches with; the kernel computes none of them itself.
+
+    N is padded to 64.  Each consumer lane holds 8 columns of 8 rows of the
+    state, 8 lanes per 8 columns, so a CTA of 64 consumers and a producer
+    warp holds all of a (batch, head)'s state.  ``chunk`` (steps per ring
+    stage) and ``stages`` (ring depth) override the defaults, to time
+    other plans (``tools/rwkv6_scan_probe.py``).  The state is float32
+    whatever ``dtype`` (float32 or bfloat16) r, k and v have; ``s`` does
+    not change the plan.  N outside 1-64 raises ``ValueError``."""
+    name = "rwkv6_scan"
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {dtype} unsupported")
+    if not 1 <= n <= _WKV_MAX_N:
+        raise ValueError(f"{name}: head_dim {n} outside 1..{_WKV_MAX_N}")
+    isz = 4 if dtype == torch.float32 else 2
+    chunk = chunk or _WKV_CHUNK
+    stages = stages or _WKV_STAGES
+    if chunk % 4 or not 4 <= chunk <= 256 or stages < 2:
+        raise ValueError(f"{name}: chunk {chunk} (a multiple of 4 up to "
+                         f"256) or ring of {stages} stages (at least 2)")
+    threads = _WKV_MAX_N + 32
+    # the ring (w in float32, r, k and v in the model dtype, each over the
+    # padded N, the bonus in float32, each on 128 bytes) and its
+    # mbarriers; the state tile (N rows of 68 floats) overlays the front
+    # before and after the chunks
+    stage = (chunk * _WKV_MAX_N * (4 + 3 * isz)
+             + -(-chunk * 4 // 128) * 128)
+    smem = max(stages * (stage + 3 * 8), n * (_WKV_MAX_N + 4) * 4)
+    ctas = min(_SM_THREADS // threads,
+               _SM_SMEM // (smem + _CTA_SMEM_RESERVED),
+               _SM_REGS // (threads * _WKV_REGS), _SM_CTAS)
+    return WkvPlan((h, b), threads, _WKV_R, _WKV_C, chunk, stages, smem,
+                   ctas, n == _WKV_MAX_N)
+
+
+def rwkv6_scan_resident(plan: WkvPlan, dtype: torch.dtype) -> int:
+    """CTAs of ``plan``'s kernel the card holds on one SM at once (CUDA's
+    occupancy count, with the kernel's real register use); needs the
+    card."""
+    from repro_torch.kernels import build
+    n = build.library("rwkv6_scan").rwkv6_scan_occupancy(
+        _DTYPES[dtype], plan.threads, plan.smem)
+    if n < 0:
+        raise RuntimeError(f"rwkv6_scan: occupancy query failed with CUDA "
+                           f"error {-n}")
+    return n
+
+
 def rwkv6_scan(r, k, v, w, u, s0=None):
     """RWKV-6 WKV recurrence, model layout.
 
     r, k, v: (B, S, H, N) float32 or bfloat16; w: (B, S, H, N) float32
     decays in (0, 1] (the model computes them in float32); u: (H, N)
     float32; s0: (B, H, N, N) float32, or None for a zero state.  Any
-    S >= 0 (no padding).  Returns (y (B, S, H, N) in r.dtype, s_final
-    (B, H, N, N) float32).
+    S >= 0 (no padding) and 1 <= N <= 64.  Returns (y (B, S, H, N) in
+    r.dtype, s_final (B, H, N, N) float32).  On the card the launch follows
+    :func:`rwkv6_scan_plan`, recorded in ``last_plan``.
     """
     name = "rwkv6_scan"
     b, s, h, n = r.shape
@@ -492,13 +587,21 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
         return y.transpose(1, 2), s_final
     if dev.type != "cuda":
         raise ValueError(f"{name}: device {dev} unsupported")
+    plan = rwkv6_scan_plan(b, s, h, n, r.dtype)
     y = torch.empty_like(r)
     s_final = torch.empty((b, h, n, n), dtype=torch.float32, device=dev)
+    # tensor copies and 16-byte state pieces need 16-byte-aligned rows: N
+    # 64 (the plan) and aligned tensors (any fresh allocation)
+    vec = plan.vec and not any(
+        x.data_ptr() % 16
+        for x in (r, k, v, w, y, s_final) + (() if s0 is None else (s0,)))
     if b and h:
         _launch(name, _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(),
                 v.data_ptr(), w.data_ptr(), u.data_ptr(),
                 None if s0 is None else s0.data_ptr(), y.data_ptr(),
-                s_final.data_ptr(), b, s, h, n, device=dev)
+                s_final.data_ptr(), b, s, h, n, plan.threads, plan.chunk,
+                plan.stages, plan.smem, int(vec), device=dev)
+        last_plan[name] = plan
     return y, s_final
 
 

@@ -87,8 +87,10 @@ def test_cuda_kernels_match_plain_versions():
 @pytest.mark.cuda
 def test_rwkv6_scan_matches_plain_version():
     """On a card: the WKV scan against ``ref.rwkv6_scan_ref`` at the
-    serving shape and the edge cases (s0 None, one step, a ragged S, N 16),
-    r/k/v in float32 and bfloat16 with float32 decays."""
+    serving shape and the edge cases (s0 None, one step, a ragged S, N 16,
+    N 8 with its rows padded to 64, N 37 without 16-byte copies), r/k/v in
+    float32 and bfloat16 with float32 decays; each launch follows
+    ``ops.rwkv6_scan_plan``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
                     "mode); chip_smoke.py runs the same comparison")
@@ -100,7 +102,9 @@ def test_rwkv6_scan_matches_plain_version():
                                     (8, 64, 64, 64, False),
                                     (2, 1, 4, 64, True),
                                     (2, 37, 4, 64, True),
-                                    (3, 40, 4, 16, True)):
+                                    (3, 40, 4, 16, True),
+                                    (2, 19, 3, 8, True),
+                                    (2, 35, 3, 37, False)):
             r, k, v = (_t(_randn(rng, (b, s, h, n))).to(dev, dtype)
                        for _ in range(3))
             w = torch.sigmoid(_t(_randn(rng, (b, s, h, n)))).to(dev) * 0.7 \
@@ -110,6 +114,9 @@ def test_rwkv6_scan_matches_plain_version():
             y, s_final = ops.rwkv6_scan(r, k, v, w, u,
                                         s0 if with_s0 else None)
             torch.cuda.synchronize()
+            plan = ops.rwkv6_scan_plan(b, s, h, n, dtype)
+            assert ops.last_plan["rwkv6_scan"] == plan
+            assert ops.rwkv6_scan_resident(plan, dtype) >= plan.ctas_per_sm
             init = s0 if with_s0 else torch.zeros_like(s0)
             want_y, want_s = ref.rwkv6_scan_ref(
                 *(x.transpose(1, 2) for x in (r, k, v, w)), u, init)
