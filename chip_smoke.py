@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (sm_90a), holds each against its plain PyTorch version, and
-drives the port's four serving paths at full width through
+drives the port's serving paths at full width through
 ``ClientHandler`` on ``LMBackend`` with random weights from seed 0:
 smollm-360m (32 layers, d_model 960, 15/5 heads, vocab 49152) and
 qwen2.5-3b (36 layers, d_model 2048, 16/2 heads of 128, QKV bias, tied
@@ -42,7 +42,11 @@ the kernel path against the plain path.  Phases:
               ids past each slot's reach, dead rows exact zeros) and at 8
               slots near 8192 tokens with C 8, at qwen2.5-3b's heads (D
               128, bs 16) and smollm-360m's (D 64, bs 8), the deep slots
-              and long shapes also within 5% of the output's RMS);
+              and long shapes also within 5% of the output's RMS; the
+              sweep also takes the verify chunks C 2, 3 and 5 with two
+              windows ending at the table's capacity, and paged prefill is
+              timed at the verify shape: 8 slots of smollm-360m's heads,
+              C 5, ragged n_live with a dead row, contexts 16-110);
               CUDA-event times of kernel, plain version and, where one
               exists, one PyTorch library call (every kernel also
               replayed from a CUDA graph, which leaves out the host's
@@ -82,7 +86,28 @@ the kernel path against the plain path.  Phases:
               rows per kv-head at D 128;
 11. parity  — the same trace in float32 with impl="cuda" and impl="torch"
               on the same weights, under phase 5's near-tie rule, at
-              QWEN_PARITY_LAYERS of the 36 layers.
+              QWEN_PARITY_LAYERS of the 36 layers;
+12. spec    — smollm-360m: phase 4's trace and paged settings in bfloat16
+              with speculative=True, spec_k 4 (mixed dispatch off), once
+              with the target as its own draft and once with the
+              full-vocab reduced draft (2 layers, head_dim 16), each step
+              closure run once and timed on a fixed timeline: every request
+              finishes, a draft clone pairs, paged_prefill launches in the
+              verify rounds (C = k + 1) and paged_decode in the draft
+              rounds, and the oracle emits more than 1.5 tokens per round;
+13. parity  — speculative streams in float32 with impl="cuda" (both
+              drafts) held to the plain non-speculative impl="torch"
+              streams on the same weights, under phase 5's near-tie rule;
+14. disagg  — smollm-360m in bfloat16, prompts prefilled on a "large"
+              partner clone (chunked paged prefill) and handed to the
+              "basic" decode clone's pool, once as bf16 blocks and once
+              through the int8 pair: every request finishes, handoffs
+              happen, and the int8 run bills exactly the int8 block bytes
+              for the same handoffs;
+15. parity  — uncompressed disagg streams in float32 with impl="cuda" held
+              to the co-located impl="torch" streams under phase 5's
+              near-tie rule; the int8 handoff finishes every request at
+              under half the float32 wire bytes.
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -128,6 +153,10 @@ QWEN_PARITY_LAYERS = 36
 RG_CAPACITY = RG_PROMPT_PAD + NEW_TOKENS
 # phase 3's long decode shape: 8 slots near an 8192-token context
 LONG_CTX = (8192, 8097, 8065, 8146, 8171, 8086, 8128, 8184)
+# speculative phases: K draft tokens per round (verify chunk C = K + 1) and
+# the paged-prefill sweep's verify chunks
+VERIFY_K = 4
+VERIFY_CHUNKS = (2, 3, 5)
 REPLACES = {
     "paged_decode": "src/repro/kernels/flash_attention.py:337",
     "paged_prefill": "src/repro/kernels/flash_attention.py:264",
@@ -135,7 +164,7 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 11
+PHASES = 15
 
 
 def fail(msg):
@@ -545,18 +574,22 @@ def prefill_sweep_phase(torch, dev):
     """paged_prefill vs its plain version over the edge cases: D 16, 64,
     128, 256 in float32, every built head dim (64, 80, 96, 128, 256) in
     bfloat16; GQA groups 1, 3, 8 over 2 kv-heads; block 8 and 16; chunks 1,
-    8, 16, 64; slots at pos0 0, bs - 1, 300 and DEEP_POS0 with n_live 0, 1,
-    partial and C (the deep slots give each of a cluster's 8 ranks several
-    64-key tiles, so the ring wraps and the softmax rescales across tiles;
-    their live rows are also held to RMS_SHARE of their RMS); softcap 30 on
-    scores of std 8 (q
-    scaled by 8, so the cap moves the output beyond the tolerance); table
+    2, 3, 5, 8, 16, 64; slots at pos0 0, bs - 1, 300 and DEEP_POS0 with
+    n_live 0, 1, partial and C, and at the verify chunks (C 2, 3, 5) two
+    windows that end at the table's capacity (the deep slots give each of
+    a cluster's 8 ranks several 64-key tiles, so the ring wraps and the
+    softmax rescales across tiles; their live rows are also held to
+    RMS_SHARE of their RMS); softcap 30 on scores of std 8 (q scaled by
+    8, so the cap moves the output beyond the tolerance); table
     entries past each slot's reach ceil((pos0 + n_live) / bs) hold ids
     outside the pool (never read; the plain version gets 0 there); rows at
     chunk positions >= n_live must be exact zeros."""
     import numpy as np
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(8)
+    # the verify chunks draw from their own generator: the other cases
+    # keep the draws they always had
+    rng_verify = np.random.default_rng(10)
     hkv = 2
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -567,15 +600,27 @@ def prefill_sweep_phase(torch, dev):
         for d in dims:
             for g in (1, 3, 8):
                 for bs in (8, 16):
-                    for c in (1, 8, 16, 64):
-                        p0 = np.array([0, bs - 1, 300, 300, bs - 1, 300,
-                                       DEEP_POS0, DEEP_POS0], np.int32)
-                        nl = np.array([c, 1, c // 2 + 1, 0, c, c, c,
-                                       c // 2 + 1], np.int32)
+                    for c in (1, 2, 3, 5, 8, 16, 64):
                         m = -(-(DEEP_POS0 + c) // bs)
+                        if c in VERIFY_CHUNKS:
+                            # the verify window: ragged n_live, a dead
+                            # row, and two windows ending at the table's
+                            # capacity (pos0 = capacity - n_live)
+                            cap = m * bs
+                            p0 = np.array([0, bs - 1, 300, 300, cap - c,
+                                           cap - 1, DEEP_POS0, DEEP_POS0],
+                                          np.int32)
+                            nl = np.array([c, 1, c // 2 + 1, 0, c, 1, c,
+                                           c - 1], np.int32)
+                        else:
+                            p0 = np.array([0, bs - 1, 300, 300, bs - 1, 300,
+                                           DEEP_POS0, DEEP_POS0], np.int32)
+                            nl = np.array([c, 1, c // 2 + 1, 0, c, c, c,
+                                           c // 2 + 1], np.int32)
                         kp, vp, tables, mk = paged_inputs(
-                            torch, rng, len(p0), hkv, d, p0 + c, dtype, dev,
-                            bs=bs, m=m)
+                            torch, rng_verify if c in VERIFY_CHUNKS else rng,
+                            len(p0), hkv, d, np.minimum(p0 + c, m * bs),
+                            dtype, dev, bs=bs, m=m)
                         reach = torch.tensor(
                             [-(-int(p + n) // bs) for p, n in zip(p0, nl)],
                             device=dev)
@@ -619,10 +664,57 @@ def prefill_sweep_phase(torch, dev):
                                          "output beyond the tolerance")
         log(f"  paged_prefill    {dtype_name:8s} edge sweep: {cases} calls, "
             f"D {'/'.join(map(str, dims))} x g 1/3/8 x bs 8/16 x C "
-            f"1/8/16/64, pos0 0/bs-1/300/{DEEP_POS0} x n_live "
-            f"0/1/partial/C, softcap, out-of-pool ids past reach: "
+            f"1/2/3/5/8/16/64, pos0 0/bs-1/300/{DEEP_POS0} (C 2/3/5 also "
+            f"capacity - n_live) x n_live 0/1/partial/C, softcap, "
+            f"out-of-pool ids past reach: "
             f"max_abs_err={worst:.3e}, at pos0 {DEEP_POS0} "
             f"max_abs_err / RMS={worst_rms:.3e} ok")
+
+
+def prefill_verify_phase(torch, dev, cfg):
+    """paged_prefill at the speculative verify shape: 8 slots of
+    smollm-360m's heads (Hq 15 / Hkv 5, D 64), block 8, C = K + 1 = 5 with
+    n_live drawn from 1-5 and one dead row, contexts (pos0) 16-110 as
+    phase 4's; vs its plain version in float32 and bfloat16, then bf16
+    CUDA-event, host enqueue and graph-replayed times."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(9)
+    c = VERIFY_K + 1
+    p0 = rng.integers(16, 111, MAX_BATCH).astype(np.int32)
+    nl = rng.integers(1, c + 1, MAX_BATCH).astype(np.int32)
+    nl[3] = 0
+    tp0 = torch.from_numpy(p0).to(dev)
+    tnl = torch.from_numpy(nl).to(dev)
+    main_err = {}
+    for dtype_name in ("float32", "bfloat16"):
+        kp, vp, tables, mk = paged_inputs(torch, rng, MAX_BATCH, hkv, d,
+                                          p0 + c, getattr(torch, dtype_name),
+                                          dev)
+        q = mk(MAX_BATCH, c, hq, d)
+        got = ops.paged_verify(q, kp, vp, tables, tp0, tnl)
+        want = ref.paged_prefill_ref(q.transpose(1, 2), kp, vp, tables, tp0,
+                                     tnl).transpose(1, 2)
+        main_err[("paged_prefill_verify", dtype_name)] = compare(
+            torch, "prefill verify", got, want, dtype_name)
+        if bool(got[3].any()):
+            fail("paged_prefill verify: the dead row is not exact zeros")
+    byts, flops = paged_prefill_cost(q, p0, nl, hkv, BLOCK, 2)
+    verify = lambda: ops.paged_verify(q, kp, vp, tables, tp0,  # noqa: E731
+                                      tnl)
+    host = {}
+    results = {"paged_prefill_verify": dict(
+        ms=time_ms(torch, verify,
+                   host=host.setdefault("paged_prefill_verify", {})),
+        plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
+            q.transpose(1, 2), kp, vp, tables, tp0, tnl)),
+        bytes=byts, flops=flops, library_ms=None,
+        graph_ms=graph_ms(torch, verify), peak=H100_PEAK["bfloat16"],
+        plan=launch_plan(ops, "paged_prefill"),
+        pos0=p0.tolist(), n_live=nl.tolist())}
+    finish(results, host, main_err)
+    return results
 
 
 def finish(results, host, main_err):
@@ -953,9 +1045,9 @@ def serve(torch, backend, reqs, executor=None, **kw):
     """Serve ``reqs`` through ``ClientHandler`` (phase 4's paged settings
     unless ``kw`` overrides them); every request must finish its budget."""
     from repro_torch.launch.serve import ClientHandler
-    kw = {"prompt_pad": PROMPT_PAD, "decode_window": 4, **kw}
-    h = ClientHandler(backend, max_batch=MAX_BATCH, max_secondaries=0,
-                      executor=executor, **kw)
+    kw = {"prompt_pad": PROMPT_PAD, "decode_window": 4, "max_secondaries": 0,
+          **kw}
+    h = ClientHandler(backend, max_batch=MAX_BATCH, executor=executor, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = h.run(reqs)
@@ -983,6 +1075,31 @@ def timed_once(torch, steps):
         steps.append((fn.__name__, dt))
         return out, dt
     return executor
+
+
+def timed_fixed(torch, steps):
+    """Executor running each step closure once and timing it on the host
+    clock between device synchronisations, appending (closure name,
+    seconds); the timeline is charged a fixed 0.05 s per closure, so two
+    runs of one trace schedule alike whatever the card's times."""
+    timed = timed_once(torch, steps)
+
+    def executor(clone, fn, args):
+        return timed(clone, fn, args)[0], 0.05
+    return executor
+
+
+def counted(ops, fn, tally):
+    """``fn`` wrapped to add the kernel launches each of its calls makes
+    to ``tally`` (by kernel name)."""
+    def run(*args):
+        before = dict(ops.launches)
+        out = fn(*args)
+        for k, v in ops.launches.items():
+            tally[k] = tally.get(k, 0) + v - before[k]
+        return out
+    run.__name__ = fn.__name__
+    return run
 
 
 def near_tie(torch, backend, req, generated, prompt_pad):
@@ -1020,10 +1137,17 @@ def parity(torch, cfg32, params, capacity, trace_fn, prompt_pad, **kw):
         n = sum(len(t) for t in runs[impl][0].values())
         log(f"  impl={impl}: wall {runs[impl][3]:.4f} s for {n} tokens "
             f"(fixed-time executor, each step run once)")
-    got, want = runs["cuda"][0], runs["torch"][0]
     plain = LMBackend(cfg32, capacity=capacity, params=params, device="cuda",
                       impl="torch")
-    reqs = {r.rid: r for r in runs["torch"][4]}
+    hold_to_plain(torch, plain, runs["torch"][4], runs["cuda"][0],
+                  runs["torch"][0], prompt_pad)
+
+
+def hold_to_plain(torch, plain, reqs, got, want, prompt_pad):
+    """Fails unless the streams ``got`` equal the plain path's ``want``, or
+    each first mismatch is a near-tie (top-two logit gap of the plain
+    backend ``plain`` < 1e-4)."""
+    reqs = {r.rid: r for r in reqs}
     mismatched = first_mismatches(got, want)
     for rid, j in mismatched:
         gap = near_tie(torch, plain, reqs[rid], want[rid][:j + 1],
@@ -1144,6 +1268,203 @@ def paged_serving(torch, cfg):
     return got
 
 
+def full_vocab_draft(cfg):
+    """The reduced-cost draft (``configs.draft_config``: 2 layers, d_model
+    32, 3 query heads over 1 KV head of 16) at the target's vocab and
+    dtype, as ``LMBackend(draft=...)`` takes it."""
+    from repro_torch.configs import draft_config
+    return dataclasses.replace(draft_config(cfg), vocab_size=cfg.vocab_size,
+                               dtype=cfg.dtype)
+
+
+def step_times(steps):
+    """``{closure name: (count, median ms)}`` of a timed run."""
+    import numpy as np
+    names = sorted({n for n, _ in steps})
+    return {n: (sum(1 for m, _ in steps if m == n),
+                round(1e3 * float(np.median([dt for m, dt in steps
+                                             if m == n])), 4))
+            for n in names}
+
+
+def spec_serving(torch, cfg):
+    """Phase 12: smollm-360m at full width in bf16 through the paged
+    handler with ``speculative=True, spec_k=VERIFY_K`` on phase 4's trace,
+    once with the target as its own draft ("oracle") and once with the
+    full-vocab reduced draft (random weights from seed 7), each closure
+    run once and timed on a fixed timeline.  Every request must finish its
+    budget and a draft clone must pair; paged_prefill must launch inside
+    the verify rounds and paged_decode inside the draft rounds (counted
+    from 0 over each run); the oracle run must emit more than 1.5 tokens
+    per round.  Returns the launches per run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMBackend
+    target = LMBackend(cfg, capacity=CAPACITY, device="cuda")
+    out = {}
+    for name, draft in (("oracle", "oracle"),
+                        ("draft", full_vocab_draft(cfg))):
+        backend = LMBackend(cfg, capacity=CAPACITY, params=target.params,
+                            device="cuda", draft=draft)
+        part = {"draft": {}, "verify": {}}
+        dfn, vfn = backend.spec_draft_fn, backend.spec_verify_fn
+        backend.spec_draft_fn = lambda *a, f=dfn: counted(ops, f(*a),
+                                                          part["draft"])
+        backend.spec_verify_fn = lambda *a, f=vfn: counted(ops, f(*a),
+                                                           part["verify"])
+        steps = []
+        ops.reset_launches()
+        toks, rep, h, wall, _ = serve(
+            torch, backend, trace(cfg.vocab_size),
+            executor=timed_fixed(torch, steps), speculative=True,
+            spec_k=VERIFY_K)
+        got = dict(ops.launches)
+        n_tok = sum(len(t) for t in toks.values())
+        per_round = rep.spec_tokens / max(rep.spec_rounds, 1)
+        log(f"  draft={name}: {rep.spec_rounds} rounds, {rep.spec_tokens} "
+            f"tokens ({per_round:.3f} per round), acceptance "
+            f"{rep.acceptance_rate:.4f}, fallbacks {rep.spec_fallbacks}; "
+            f"wall {wall:.4f} s for {n_tok} tokens (each closure run "
+            f"once); closures (count, median ms) {step_times(steps)}; "
+            f"draft/target parameters {backend.draft_cost_ratio:.3e}; "
+            f"launches {got}, in verify {part['verify']}, in draft "
+            f"{part['draft']}")
+        if not h.spec_draft_cids:
+            fail(f"spec ({name}): no draft clone paired")
+        if part["verify"].get("paged_prefill", 0) <= 0:
+            fail(f"spec ({name}): paged_prefill never launched in a verify "
+                 "round")
+        if part["draft"].get("paged_decode", 0) <= 0:
+            fail(f"spec ({name}): paged_decode never launched in a draft "
+                 "round")
+        if name == "oracle" and not per_round > 1.5:
+            fail(f"spec (oracle): {per_round} tokens per round, want > 1.5")
+        out[name] = got
+    return out
+
+
+def spec_parity(torch, cfg):
+    """Phase 13: float32 smollm-360m at full width (random weights from
+    seed 0): speculative streams with impl="cuda" (verify on
+    paged_prefill.cu, draft and plain decode on paged_decode.cu), with the
+    oracle and with the reduced draft, held to the plain non-speculative
+    impl="torch" streams under phase 5's near-tie rule."""
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    fixed = lambda c, f, a: (f(*a), 0.05)          # noqa: E731
+    plain = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
+                      impl="torch")
+    want, _, _, wall, reqs = serve(torch, plain, trace(cfg.vocab_size),
+                                   executor=fixed)
+    log(f"  impl=torch, no speculation: wall {wall:.4f} s")
+    for name, draft in (("oracle", "oracle"),
+                        ("draft", full_vocab_draft(cfg32))):
+        b = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
+                      impl="cuda", draft=draft)
+        got, rep, _, wall, _ = serve(torch, b, trace(cfg.vocab_size),
+                                     executor=fixed, speculative=True,
+                                     spec_k=VERIFY_K)
+        log(f"  impl=cuda, draft={name}: wall {wall:.4f} s, "
+            f"{rep.spec_rounds} rounds, acceptance "
+            f"{rep.acceptance_rate:.4f}")
+        hold_to_plain(torch, plain, reqs, got, want, PROMPT_PAD)
+    del params
+
+
+DISAGG = dict(fleet=["basic", "large"], clone_type="basic", disagg=True,
+              disagg_min_prompt=1, disagg_prefill_type="large",
+              max_secondaries=2)
+
+
+def disagg_serving(torch, cfg):
+    """Phase 14: smollm-360m at full width in bf16, prompts prefilled on a
+    "large" partner clone and handed to the "basic" decode clone's pool,
+    uncompressed and through the int8 pair, each closure run once and
+    timed on a fixed timeline (both runs schedule alike).  Every request
+    must finish, at least one handoff must happen, paged_prefill (the
+    partner's chunks) and paged_decode must launch, and the compressed
+    run must bill exactly the int8 block bytes (payload + per-head scales:
+    a bf16 block's half plus its scales) for the same handoffs.  Returns
+    the launches per run."""
+    from repro_torch.core.venues import kv_block_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMBackend
+    backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
+    out, reps = {}, {}
+    for compress in (False, True):
+        name = "int8" if compress else "bf16"
+        steps = []
+        ops.reset_launches()
+        toks, rep, h, wall, _ = serve(
+            torch, backend, trace(cfg.vocab_size),
+            executor=timed_fixed(torch, steps), disagg_compress=compress,
+            **DISAGG)
+        got = dict(ops.launches)
+        n_tok = sum(len(t) for t in toks.values())
+        log(f"  handoff {name}: {rep.disagg_handoffs} handoffs, "
+            f"{rep.disagg_colocated} co-located, {rep.disagg_fallbacks} "
+            f"fallbacks, kv_transfer_bytes {rep.kv_transfer_bytes:.0f} "
+            f"({rep.kv_transfer_s * 1e6:.3f} us on the link); wall "
+            f"{wall:.4f} s for {n_tok} tokens; closures (count, median ms) "
+            f"{step_times(steps)}; launches {got}")
+        if rep.disagg_handoffs < 1:
+            fail(f"disagg ({name}): no handoff")
+        for kname in ("paged_prefill", "paged_decode"):
+            if got[kname] <= 0:
+                fail(f"disagg ({name}): {kname} never launched")
+        out[name], reps[name] = got, rep
+    raw, quant = (kv_block_bytes(cfg, BLOCK, quantized=q)
+                  for q in (False, True))
+    u, c = reps["bf16"], reps["int8"]
+    if not (c.disagg_handoffs == u.disagg_handoffs
+            and 0 < c.kv_transfer_bytes * raw == u.kv_transfer_bytes * quant):
+        fail(f"disagg: int8 handoff billed {c.kv_transfer_bytes} bytes, want "
+             f"{u.kv_transfer_bytes} x {quant} / {raw}")
+    log(f"  int8 / bf16 handoff bytes "
+        f"{c.kv_transfer_bytes / u.kv_transfer_bytes:.4f} ({quant} / {raw} "
+        "per block)")
+    return out
+
+
+def disagg_parity(torch, cfg):
+    """Phase 15: float32 smollm-360m at full width: uncompressed disagg
+    streams with impl="cuda" held to the co-located impl="torch" streams
+    under phase 5's near-tie rule; the int8 handoff (impl="cuda") must
+    finish every request at under half the uncompressed wire bytes (the
+    reference test's bound: float32 blocks, so int8 is a quarter plus
+    scales)."""
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    fixed = lambda c, f, a: (f(*a), 0.05)          # noqa: E731
+    plain = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
+                      impl="torch")
+    want, _, _, wall, reqs = serve(torch, plain, trace(cfg.vocab_size),
+                                   executor=fixed)
+    log(f"  impl=torch, co-located: wall {wall:.4f} s")
+    cuda = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
+                     impl="cuda")
+    reps = {}
+    for compress in (False, True):
+        got, reps[compress], _, wall, _ = serve(
+            torch, cuda, trace(cfg.vocab_size), executor=fixed,
+            disagg_compress=compress, **DISAGG)
+        log(f"  impl=cuda, disagg {'int8' if compress else 'float32'}: "
+            f"wall {wall:.4f} s, {reps[compress].disagg_handoffs} handoffs, "
+            f"kv_transfer_bytes {reps[compress].kv_transfer_bytes:.0f}")
+        if not compress:
+            hold_to_plain(torch, plain, reqs, got, want, PROMPT_PAD)
+    if not 0 < reps[True].kv_transfer_bytes \
+            < 0.5 * reps[False].kv_transfer_bytes:
+        fail(f"disagg: int8 handoff bytes {reps[True].kv_transfer_bytes} not "
+             f"under half of {reps[False].kv_transfer_bytes}")
+    del params
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -1189,6 +1510,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     prefill_sweep_phase(torch, dev)
+    prefill_verify = prefill_verify_phase(torch, dev, cfg)
     prefill_long = prefill_long_phase(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1283,15 +1605,40 @@ def main():
     parity(torch, *cut_depth(model, q32, params, QWEN_PARITY_LAYERS),
            CAPACITY, trace, PROMPT_PAD)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[12/{PHASES} spec] smollm-360m full width, bfloat16, "
+        f"ClientHandler(speculative=True, spec_k={VERIFY_K})")
+    spec_launches = spec_serving(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[13/{PHASES} spec parity] smollm-360m float32, speculative "
+        "impl=cuda vs plain impl=torch, same weights")
+    spec_parity(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[14/{PHASES} disagg] smollm-360m full width, bfloat16, "
+        "ClientHandler(disagg=True), bf16 and int8 handoff")
+    disagg_launches = disagg_serving(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[15/{PHASES} disagg parity] smollm-360m float32, disagg "
+        "impl=cuda vs co-located impl=torch, same weights")
+    disagg_parity(torch, cfg)
 
     # launches per serving path, each counted from 0 over its own run
+    # (spec: both drafts' runs; disagg: both handoff runs)
     by_path = {
-        name: {"smollm": launches[name], "qwen": qwen_launches[name]}
-        for name in ("paged_decode", "paged_prefill")}
-    by_path["flash_attention"] = {
-        "smollm": launches["flash_attention"],
-        "recurrentgemma": rg_launches["flash_attention"],
-        "qwen": qwen_launches["flash_attention"]}
+        name: {"smollm": launches[name], "qwen": qwen_launches[name],
+               "spec": sum(r[name] for r in spec_launches.values()),
+               "disagg": sum(r[name] for r in disagg_launches.values())}
+        for name in ("paged_decode", "paged_prefill", "flash_attention")}
+    by_path["flash_attention"]["recurrentgemma"] = \
+        rg_launches["flash_attention"]
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
@@ -1320,6 +1667,12 @@ def main():
                                     "long": long["plan"]}
         if name == "paged_prefill":
             kernels[-1]["graph_ms"] = r["graph_ms"]
+            # the same kernel at the speculative verify shape (C 5)
+            vr = prefill_verify["paged_prefill_verify"]
+            kernels[-1]["verify"] = {k: vr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "graph_ms", "bytes", "flops", "pos0",
+                "n_live")}
             # the same kernel at 8 slots near 8192 tokens, two head layouts
             for key, lr in prefill_long.items():
                 kernels[-1][key.replace("paged_prefill_", "")] = {
@@ -1328,7 +1681,7 @@ def main():
                         "bound_by", "library_ms", "graph_ms", "bytes",
                         "flops")}
             kernels[-1]["plans"] = {
-                "serving": r["plan"],
+                "serving": r["plan"], "verify": vr["plan"],
                 **{key.replace("paged_prefill_", ""): lr["plan"]
                    for key, lr in prefill_long.items()}}
         if name == "flash_attention":

@@ -7,7 +7,9 @@ the launch fails; on a CPU tensor it runs the kernel's plain version from
 :mod:`repro_torch.kernels.ref`; any other device raises.  The kernels read
 and write the model's own layouts ((B, S, H, D) activations, (N, bs, Hkv, D)
 pools, (B, H, N, N) and (B, R) recurrent states), so no wrapper transposes
-or pads on the card.
+or pads on the card.  The int8 KV pair (:func:`quantize_kv_blocks`,
+:func:`dequantize_kv_blocks`) is plain torch on every device: its reference
+is plain ``jnp``, not a Pallas kernel.
 
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import compression as _comp
 from repro_torch.kernels import ref
 
 # per-CTA tile limits of the scalar attention kernels (csrc/attn_tile.cuh:
@@ -387,6 +390,41 @@ def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
                 float(softcap or 0.0), device=q.device)
         last_plan[name] = plan
     return out
+
+
+def paged_verify(q, k_pool, v_pool, block_tables, pos0, n_live, *,
+                 softcap: Optional[float] = None):
+    """Speculative-verification paged attention, model layout: the
+    :func:`paged_prefill` contract, launching the same kernel on the card
+    (its launches count under ``paged_prefill``).
+
+    q: (B, C, Hq, D), per slot the queries of its current token and its
+    ``k_i`` draft proposals, C = K + 1 (the window's K/V already scattered
+    into the pool); pos0 (B,) the slot cursor; n_live (B,) = ``k_i + 1``,
+    0 for a dead row.  Rows at window positions >= n_live come back exact
+    zeros, and keys past ``pos0 + q_row`` are masked causally, so the
+    stale K/V of proposals an earlier round rejected is never read:
+    positions below the window were committed, positions inside it were
+    overwritten by this window's scatter before the call.  The model's
+    chunk branch calls :func:`paged_prefill` itself, as the reference's
+    does; this entry point names the verify shape (ragged ``n_live``,
+    C 2-5) for the kernel checks."""
+    return paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live,
+                         softcap=softcap)
+
+
+def quantize_kv_blocks(blocks):
+    """Per-(block, head) int8 quantization of gathered KV blocks ``(n, bs,
+    Hkv, D)``: ``(q int8, scales float32 keepdims)``.  Plain torch on
+    every device: the reference computes it in plain ``jnp`` outside any
+    Pallas kernel, so there is no TPU kernel to port here."""
+    return _comp.quantize_kv_blocks(blocks)
+
+
+def dequantize_kv_blocks(q, scales, *, dtype=torch.bfloat16):
+    """Inverse of :func:`quantize_kv_blocks` to the pool dtype (plain
+    torch on every device, as the reference's is plain ``jnp``)."""
+    return _comp.dequantize_kv_blocks(q, scales, dtype=dtype)
 
 
 class FlashPlan(NamedTuple):

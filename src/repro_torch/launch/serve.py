@@ -24,9 +24,17 @@ recurrent-state models (RWKV-6) and the RG-LRU hybrid with its
 sliding-window ring cache (recurrentgemma): the paged path raises for them
 (ROADMAP Queue 3; the reference has no paged ring).
 
-Speculative decoding, disaggregated prefill, fault injection and hedging,
-the SLO gateway, non-ledger routing and the legacy ``ServingEngine`` raise
-``NotImplementedError`` naming their ROADMAP item.
+Speculative decoding (ADR-008) pairs each engine with a draft clone: a
+round drafts K tokens per slot on the draft model (``model.draft_loop``,
+decode mode) and scores them in one chunked pass on the target
+(``model.verify_window``, the paged-prefill kernel); the host accepts the
+longest agreeing prefix, so the streams are the plain greedy streams.
+Disaggregated prefill (ADR-009) prefills cold prompts on a shared partner
+clone and hands their KV blocks to the decode pool inside the engine's next
+step, optionally through the int8 pair; ``routing="affinity"`` prefers
+engines and clones by prefix-match depth.  Fault injection and hedging, the
+SLO gateway and the legacy ``ServingEngine`` raise ``NotImplementedError``
+naming their ROADMAP item.
 
 KV caches are updated in place, recurrent state is replaced.  Every step
 closure is idempotent (each write is a function of the step's inputs,
@@ -55,7 +63,9 @@ from repro_torch.core.scheduler import (AdmissionQueue, FleetAutoscaler,
                                         PlacementEngine, ServeCompletion,
                                         ServeRequest, SlotLedger,
                                         poisson_arrivals)
-from repro_torch.core.venues import Venue, pytree_bytes, transfer_time
+from repro_torch.core.venues import (LINKS, Venue, kv_block_bytes,
+                                     pytree_bytes, transfer_time)
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks, model
 from repro_torch.models.context import RunContext
@@ -80,11 +90,17 @@ class LMBackend:
     ``impl`` defaults to the CUDA kernels on a card and the plain path
     elsewhere.  Configurations outside the dense attention, RWKV-6 and
     RG-LRU hybrid families raise ``NotImplementedError``.
+
+    ``draft`` arms speculative decoding (ADR-008): a ``ModelConfig``
+    sharing the target's vocab binds a draft model on the same device and
+    context (``draft_params``, else drawn from a generator seeded 7);
+    ``"oracle"`` makes the target its own draft.
     """
 
     def __init__(self, cfg, capacity: int = 256, *,
                  params: Optional[Dict] = None, device=None,
-                 impl: Optional[str] = None):
+                 impl: Optional[str] = None, draft=None,
+                 draft_params: Optional[Dict] = None):
         blocks.check_supported(cfg)
         self.cfg = cfg
         self.capacity = capacity
@@ -94,11 +110,41 @@ class LMBackend:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = model.init(cfg, gen, self.device)
         self.params = params
+        self.draft_cfg = None
+        self.draft_params = None
+        if draft == "oracle":
+            self.draft_cfg, self.draft_params = cfg, params
+        elif draft is not None:
+            if draft.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft model must share the target's vocab "
+                    f"({draft.vocab_size} != {cfg.vocab_size}): acceptance "
+                    "compares token ids directly")
+            blocks.check_supported(draft)
+            if draft_params is None:
+                gen = torch.Generator(device=self.device).manual_seed(7)
+                draft_params = model.init(draft, gen, self.device)
+            self.draft_cfg, self.draft_params = draft, draft_params
+        elif draft_params is not None:
+            raise ValueError("draft_params given without a draft config")
 
     @property
     def supports_chunked(self) -> bool:
         """Whether chunked prefill / mixed dispatch cover this config."""
         return model.supports_chunked_prefill(self.cfg)
+
+    @property
+    def supports_speculative(self) -> bool:
+        """Whether a draft model is bound and the target can run the
+        chunked verify pass."""
+        return self.draft_cfg is not None and self.supports_chunked
+
+    @property
+    def draft_cost_ratio(self) -> float:
+        """Draft / target parameter-count ratio (informational)."""
+        if self.draft_cfg is None:
+            return 1.0
+        return model.n_params(self.draft_cfg) / model.n_params(self.cfg)
 
     def cache_mem_bytes(self, batch: int) -> int:
         """Bytes of a contiguous (batch, capacity) cache (KV and state
@@ -143,6 +189,44 @@ class LMBackend:
         """Zero KV block pool on the backend's device (block 0 = trash)."""
         return model.init_paged_cache(self.cfg, max_slots, num_blocks,
                                       block_size, device=self.device)
+
+    def init_draft_pool(self, max_slots: int, num_blocks: int,
+                        block_size: int):
+        """Zero paged pool of the draft model with the target pool's block
+        geometry, so both share one set of block tables."""
+        return model.init_paged_cache(self.draft_cfg, max_slots, num_blocks,
+                                      block_size, device=self.device)
+
+    def spec_draft_fn(self, block_size: int, catchup_steps: int,
+                      k_max: int):
+        """Draft half of a speculative round: ``fn(dparams, dpool, ctoks
+        (S,Tc), cpos0 (S,), n_c (S,), tok (S,1), pos (S,), k_live (S,),
+        tables (S,M)) -> (drafts (S, k_max), dpool)`` (the catch-up and the
+        proposals of :func:`model.draft_loop`, decode mode only)."""
+        dcfg, ctx, capacity = self.draft_cfg, self.ctx, self.capacity
+
+        def draft(dparams, dpool, ctoks, cpos0, n_c, tok, pos, k_live,
+                  tables):
+            return model.draft_loop(
+                dcfg, dparams, dpool, ctoks, cpos0, n_c, tok, pos, k_live,
+                ctx, block_tables=tables, block_size=block_size,
+                catchup_steps=catchup_steps, num_steps=k_max,
+                capacity=capacity)
+        return draft
+
+    def spec_verify_fn(self, block_size: int):
+        """Verify half: ``fn(params, pool, toks (S, K+1), pos0 (S,), n_live
+        (S,), tables (S,M)) -> (greedy (S, K+1), pool)`` through
+        :func:`model.verify_window` (chunk mode: the paged-prefill kernel
+        on the card)."""
+        cfg, ctx, capacity = self.cfg, self.ctx, self.capacity
+
+        def verify(params, pool, toks, pos0, n_live, tables):
+            return model.verify_window(cfg, params, pool, toks, pos0, n_live,
+                                       ctx, block_tables=tables,
+                                       block_size=block_size,
+                                       capacity=capacity)
+        return verify
 
     def paged_fns(self, block_size: int, window: int = 1):
         """(prefill_into, decode_window).
@@ -239,6 +323,34 @@ class LMBackend:
                 kref.copy_blocks(leaf, src, dst, axis=ax)
             return pool
         return copy_into
+
+    def migrate_fn(self, compress: bool = False):
+        """Cross-pool KV migration: ``fn(dst_pool, src_pool, src_ids (C,),
+        dst_ids (C,))`` writes the listed source blocks into the listed
+        destination blocks of every leaf, in place (block 0 is the trash
+        block on both sides: 0 -> 0 pads are harmless).  The reference's
+        two slot-id arguments address per-slot recurrent-state rows, which
+        the port's paged pool never holds (``init_paged_cache`` raises for
+        recurrent configurations), so they are left out.
+        ``compress=True`` round-trips the gathered blocks through the int8
+        pair (``ops.quantize_kv_blocks`` / ``dequantize_kv_blocks``, to
+        the destination's dtype) before they land: the compressed handoff
+        of ADR-009."""
+        cfg = self.cfg
+
+        def migrate(dst_pool, src_pool, src_ids, dst_ids):
+            sids, dids = src_ids.long(), dst_ids.long()
+            for (dleaf, ax), (sleaf, _) in zip(
+                    model.cache_leaves(cfg, dst_pool),
+                    model.cache_leaves(cfg, src_pool)):
+                payload = sleaf.movedim(ax, 0)[sids]
+                if compress:
+                    q, scales = ops.quantize_kv_blocks(payload)
+                    payload = ops.dequantize_kv_blocks(q, scales,
+                                                       dtype=dleaf.dtype)
+                dleaf.movedim(ax, 0)[dids] = payload
+            return dst_pool
+        return migrate
 
 
 class PoolExhausted(RuntimeError):
@@ -594,13 +706,45 @@ class _SlotEngine:
         self.joins: List[tuple] = []        # (slot, req, eff, blk_ids)
         self.sfx_joins: List[tuple] = []    # (slot, req, sfx, pos0, restore)
         self.cow_pairs: List[tuple] = []    # (slot, src, dst) this round
+        # handoffs from the disagg partner's scratch pool, folded into the
+        # next step as a device copy: (slot, req, first_token,
+        # first_token_t, src_ids, dst_ids, src_slot)
+        self.migrations: List[tuple] = []
         self.submitted_joins: List[tuple] = []
         self.submitted_sfx: List[tuple] = []
+        self.submitted_migrations: List[tuple] = []
         self.decode_rows: Optional[np.ndarray] = None
         self.decode_counts: Optional[np.ndarray] = None
         self._tables_dev = None
         self._tables_ver = -1
+        # speculative decoding (ADR-008): the paired draft clone, the draft
+        # model's pool (same block tables as ``kv``), per-slot draft
+        # cursors (``dpos <= kv.pos``: the gap is the history the next
+        # catch-up replays), the stashed verify builder and per-row k of
+        # the round in flight, the (drafts, n_spec) awaiting acceptance;
+        # ``spec_on`` goes stickily False when acceptance collapses
+        self.spec_on = False
+        self.draft_clone = None
+        self.draft_pool = None
+        self.spec_k = 0
+        self.dpos = np.zeros((kv.max_slots,), np.int32)
+        self._verify_builder = None
+        self._spec_round: Optional[np.ndarray] = None
+        self.spec_pending: Optional[tuple] = None
+        self.spec_rounds_done = 0
+        # disaggregated prefill (ADR-009): the shared partner clone and
+        # this engine's scratch pool on it, rows waiting for the partner
+        # dispatch or riding one, and the decode-pool blocks still waiting
+        # for their handoff (kept pending, so no sharer reads them early)
+        self.disagg_on = False
+        self.prefill_clone = None
+        self.prefill_pool: Optional[KVBlockPool] = None
+        self.disagg_joins: List[tuple] = []       # (slot, req, eff, new_ids)
+        self.submitted_disagg: List[tuple] = []
+        self.disagg_blocks: Dict[int, List[int]] = {}
+        # one step and at most one partner prefill in flight at a time
         self.main_inflight = False
+        self.disagg_inflight = False
 
     def device_tables(self):
         """Device copy of ``kv.tables``, re-uploaded only when dirty."""
@@ -645,11 +789,15 @@ class _SlotEngine:
 
     def alive(self) -> bool:
         return (any(s is not None for s in self.slots)
-                or bool(self.joins) or bool(self.sfx_joins))
+                or bool(self.joins) or bool(self.sfx_joins)
+                or bool(self.migrations) or bool(self.disagg_joins)
+                or bool(self.submitted_disagg))
 
     def step_work(self) -> bool:
+        """Work for the engine's own clone; rows parked on the disagg
+        partner wait for their handoff instead of an empty step."""
         return (bool(self.kv.active.any()) or bool(self.joins)
-                or bool(self.sfx_joins))
+                or bool(self.sfx_joins) or bool(self.migrations))
 
 
 @dataclasses.dataclass
@@ -713,6 +861,22 @@ class ServeReport:
     energy_j_by_type: Dict[str, float] = dataclasses.field(
         default_factory=dict)
     power_offs: int = 0
+    # speculative decoding (ADR-008): completed draft + verify rounds, the
+    # tokens they emitted, accepted / proposed draft tokens, and engines
+    # that served plainly (no draft clone, or acceptance collapsed)
+    spec_rounds: int = 0
+    spec_tokens: int = 0
+    acceptance_rate: float = 0.0
+    spec_fallbacks: int = 0
+    # disaggregated prefill (ADR-009): prompts prefilled on the partner
+    # whose blocks migrated to the decode clone, candidates the planner
+    # kept local, engines without a partner, and the modeled handoff
+    # traffic (int8 payload + scales when compressed) and its link time
+    disagg_handoffs: int = 0
+    disagg_colocated: int = 0
+    disagg_fallbacks: int = 0
+    kv_transfer_bytes: float = 0.0
+    kv_transfer_s: float = 0.0
 
     def summary(self) -> str:
         return (f"served={len(self.completions)} shed={self.rejected} "
@@ -758,22 +922,73 @@ class ClientHandler:
                  clock: Optional[VirtualClock] = None,
                  breaker_max_open_s: Optional[float] = None,
                  breaker_max_probes: Optional[int] = None,
-                 speculative: bool = False, disagg: bool = False,
-                 faults=None, hedge_factor: float = 0.0, gateway=None,
-                 routing: str = "ledger"):
+                 speculative: bool = False, spec_k: int = 4,
+                 spec_corruption: float = 0.0,
+                 routing: str = "ledger",
+                 disagg: bool = False, disagg_link: str = "nvlink",
+                 disagg_compress: bool = False,
+                 disagg_min_prompt: Optional[int] = None,
+                 disagg_prefill_type: Optional[str] = None,
+                 faults=None, hedge_factor: float = 0.0, gateway=None):
         if kv not in ("paged", "contiguous"):
             raise ValueError(f"kv must be 'paged' or 'contiguous': {kv!r}")
-        if speculative:
-            raise _later("speculative decoding", "verify/spec + draft_loop")
-        if disagg:
-            raise _later("disaggregated prefill", "disagg + int8 pair")
         if faults or hedge_factor > 0:
             raise _later("fault injection and hedging",
                          "faults/hedging/gateway")
         if gateway is not None:
             raise _later("the SLO gateway", "faults/hedging/gateway")
-        if routing != "ledger":
-            raise _later(f"routing={routing!r}", "disagg + int8 pair")
+        # speculative decoding (ADR-008)
+        if speculative:
+            if kv != "paged":
+                raise ValueError("speculative decoding scores draft "
+                                 "windows through per-slot block tables; "
+                                 "it requires kv='paged'")
+            if not getattr(backend, "supports_speculative", False):
+                raise ValueError("speculative decoding needs a backend "
+                                 "with a bound draft model "
+                                 "(LMBackend(draft=...)) and chunked-"
+                                 "verify support")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1: {spec_k}")
+        # prefix-affinity / random routing (ADR-009): "ledger" is the pure
+        # free-slot policy, "affinity" prefers engines by prefix-match
+        # depth, "random" is the affinity sweep's control arm
+        if routing not in ("ledger", "affinity", "random"):
+            raise ValueError("routing must be 'ledger', 'affinity' or "
+                             f"'random': {routing!r}")
+        if routing != "ledger" and kv != "paged":
+            raise ValueError("prefix-affinity/random routing scores the "
+                             "paged prefix index; it requires kv='paged'")
+        # disaggregated prefill (ADR-009)
+        if disagg:
+            if kv != "paged":
+                raise ValueError("disaggregated prefill migrates paged KV "
+                                 "blocks between clones; it requires "
+                                 "kv='paged'")
+            if not getattr(backend, "supports_chunked", False):
+                raise ValueError("disaggregated prefill replays prompts "
+                                 "through the chunked paged-prefill scan; "
+                                 "the backend must support chunked prefill "
+                                 "(all-attention, windowless layers)")
+            if speculative:
+                raise ValueError("disaggregated prefill and speculative "
+                                 "decoding both pair the engine with a "
+                                 "partner clone; run one at a time")
+            if disagg_link not in LINKS:
+                raise ValueError(f"unknown disagg_link {disagg_link!r}; "
+                                 f"known: {sorted(LINKS)}")
+        if disagg_prefill_type is not None \
+                and disagg_prefill_type not in CLONE_TYPES:
+            raise ValueError(f"unknown disagg_prefill_type "
+                             f"{disagg_prefill_type!r}")
+        self.routing = routing
+        self.speculative = speculative
+        self.spec_k = spec_k
+        self.spec_corruption = spec_corruption
+        self.disagg = disagg
+        self.disagg_link = disagg_link
+        self.disagg_compress = disagg_compress
+        self.disagg_min_prompt = disagg_min_prompt
         if decode_window < 1:
             raise ValueError(f"decode_window must be >= 1: {decode_window}")
         if decode_window > 1 and kv != "paged":
@@ -805,7 +1020,13 @@ class ClientHandler:
                              "backend with chunked-prefill support "
                              "(all-attention, windowless layers)")
         if mixed_dispatch is None:
-            mixed_dispatch = prefill_chunk > 0
+            # a speculative round's decode tile is a verify window, which
+            # the fused mixed scan has no variant of
+            mixed_dispatch = prefill_chunk > 0 and not speculative
+        elif mixed_dispatch and speculative:
+            raise ValueError("mixed_dispatch and speculative decoding are "
+                             "mutually exclusive: the spec round's decode "
+                             "tile is a verify window, not a decode scan")
         elif mixed_dispatch and prefill_chunk == 0:
             raise ValueError("mixed_dispatch requires prefill_chunk > 0 "
                              "(the fused step advances chunk tokens per "
@@ -887,13 +1108,42 @@ class ClientHandler:
         self._escalated: set = set()
         self.demand_by_class: Dict[tuple, int] = {}
         self._band_cache: Dict[int, tuple] = {}
+        # speculative telemetry; ``_spec_rng`` drives the deterministic
+        # proposal corruption, drawn on the host only (never in a closure
+        # an executor may re-run)
+        self.spec_rounds = 0
+        self.spec_tokens = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_fallbacks = 0
+        self.spec_draft_cids: List[int] = []
+        self._spec_rng = np.random.default_rng(0xC0FFEE)
+        # disaggregated prefill + routing: the partner tier defaults to the
+        # top of the fleet; ONE partner clone is shared, refcounted, by
+        # every disagg engine, each keeping a private scratch pool on it
+        # (keyed by its decode clone); the seeded rng keeps "random"
+        # routing deterministic
+        self.disagg_prefill_type = disagg_prefill_type or self.fleet[-1]
+        self._prefill_pools: Dict[int, KVBlockPool] = {}
+        self._partner_clone = None
+        self._partner_refs = 0
+        self._route_rng = np.random.default_rng(0xD15A66)
+        self.disagg_handoffs = 0
+        self.disagg_colocated = 0
+        self.disagg_fallbacks = 0
+        self.kv_transfer_bytes = 0.0
+        self.kv_transfer_s = 0.0
+        self._disagg_blk_bytes: Optional[int] = None
 
     # ---------------------------------------------------------------- clones
     def _free_clone(self, lo_rank: Optional[int] = None,
-                    hi_rank: Optional[int] = None):
+                    hi_rank: Optional[int] = None,
+                    prefer_cid: Optional[int] = None):
         """Best usable clone inside the ``[lo_rank, hi_rank]`` band:
         soonest-ready first, then the smallest tier, then cid.  The primary
-        is exempt from the band's upper bound (standing capacity)."""
+        is exempt from the band's upper bound (standing capacity).
+        ``prefer_cid`` (affinity routing) wins among the candidates tied on
+        readiness; ``routing="random"`` picks uniformly."""
         def in_band(rank, primary=False):
             return ((lo_rank is None or rank >= lo_rank)
                     and (primary or hi_rank is None or rank <= hi_rank))
@@ -912,10 +1162,76 @@ class ClientHandler:
                 continue
             cands.append((self.autoscaler.clone_ready_delay(c, now),
                           c.ctype.rank(), c.cid, c))
-        return min(cands)[3] if cands else None
+        if not cands:
+            return None
+        if self.routing == "random":
+            return cands[int(self._route_rng.integers(len(cands)))][3]
+        best = min(cands)
+        if prefer_cid is not None:
+            for c in cands:
+                if c[3].cid == prefer_cid and c[0] <= best[0] + 1e-12:
+                    return c[3]
+        return best[3]
 
     def _net_s(self, nbytes: int) -> float:
         return transfer_time(nbytes, self.pool.link)
+
+    # ------------------------------------------- disagg / affinity (ADR-009)
+    def _disagg_block_bytes(self) -> int:
+        """Modeled wire bytes of one KV block on the handoff link
+        (``venues.kv_block_bytes``: int8 payload + per-head scales when
+        compressing)."""
+        if self._disagg_blk_bytes is None:
+            self._disagg_blk_bytes = kv_block_bytes(
+                self.backend.cfg, self.block_size,
+                quantized=self.disagg_compress)
+        return self._disagg_blk_bytes
+
+    def _disagg_worth(self, engine: _SlotEngine, plen: int) -> bool:
+        """Ship the prefill to the partner only when the modeled prefill
+        time it saves (prompt FLOPs at the decode tier vs the partner
+        tier) exceeds the handoff's wire time on ``disagg_link``; an
+        explicit ``disagg_min_prompt`` replaces the model with a length
+        threshold."""
+        if self.disagg_min_prompt is not None:
+            return plen >= self.disagg_min_prompt
+        flops = 2.0 * model.n_params(self.backend.cfg) * plen
+        gain = (flops / engine.clone.spec.eff_flops
+                - flops / engine.prefill_clone.spec.eff_flops)
+        nb = -(-plen // self.block_size)
+        wire = transfer_time(nb * self._disagg_block_bytes(),
+                             LINKS[self.disagg_link])
+        return gain > wire
+
+    def _affinity_depth(self, kvp: KVBlockPool, req: ServeRequest) -> int:
+        """Cached-prefix depth (tokens) ``kvp`` holds for ``req`` (pure)."""
+        eff = _SlotEngine.effective_prompt(req, self.prompt_pad,
+                                           self.backend.capacity)
+        return int(kvp.match_prefix(eff)[2])
+
+    def _affinity_by_type(self, req: ServeRequest) -> Dict[str, int]:
+        """Best prefix-match depth per tier over live clone pools: the
+        ``prefix_affinity`` hint of ``PlacementEngine.choose_type``."""
+        out: Dict[str, int] = {}
+        by_cid = {c.cid: c for c in self.pool.clones}
+        for cid, kvp in self._kv_pools.items():
+            clone = by_cid.get(cid)
+            if clone is None or not clone.serveable:
+                continue
+            d = self._affinity_depth(kvp, req)
+            t = clone.ctype.name
+            out[t] = max(out.get(t, 0), d)
+        return out
+
+    def _best_affinity_cid(self, req: ServeRequest) -> Optional[int]:
+        """Clone id with the deepest cached prefix for ``req`` (pools
+        persist across engine generations on one clone)."""
+        best, best_d = None, 0
+        for cid, kvp in sorted(self._kv_pools.items()):
+            d = self._affinity_depth(kvp, req)
+            if d > best_d:
+                best, best_d = cid, d
+        return best
 
     def _charge(self, clone, venue_seconds: float) -> None:
         """Bill one dispatch's busy energy, chips-aware."""
@@ -973,8 +1289,14 @@ class ClientHandler:
         else:
             rt = self._required_type(req)
             lo = CLONE_TYPES[rt].rank()
-            ct = self.placement.choose_type(rt, urgent=req.priority > 0) \
-                or rt
+            hints = {}
+            if self.routing == "affinity":
+                # a tier holding the request's cached prefix outranks the
+                # $-policy order
+                hints = {"hint": "prefix_affinity",
+                         "affinity": self._affinity_by_type(req)}
+            ct = self.placement.choose_type(rt, urgent=req.priority > 0,
+                                            **hints) or rt
             band = (lo, max(lo, CLONE_TYPES[ct].rank()))
         self._band_cache[req.rid] = band
         return band
@@ -1092,7 +1414,12 @@ class ClientHandler:
     # ------------------------------------------------------------- slots
     def _start_engine(self, clone) -> _SlotEngine:
         """Engine for ``clone``; its KV pool is allocated once and reset
-        across engine generations, so the prefix index survives."""
+        across engine generations, so the prefix index survives.  A
+        speculative handler pairs the engine with a draft clone and a
+        fresh draft pool of the target pool's geometry; a disaggregated
+        one attaches it to the shared prefill partner and its scratch
+        pool.  No partner means the engine serves plainly (a fallback,
+        never a stall)."""
         clone.busy = True
         kv = self._kv_pools.get(clone.cid)
         if kv is None:
@@ -1102,15 +1429,137 @@ class ClientHandler:
             self._kv_pools[clone.cid] = kv
         else:
             kv.reset()
-        return _SlotEngine(self.backend, clone, kv, self.decode_window,
-                           self.prefill_chunk, self.mixed_dispatch)
+        engine = _SlotEngine(self.backend, clone, kv, self.decode_window,
+                             self.prefill_chunk, self.mixed_dispatch)
+        if self.speculative:
+            dc = self._acquire_draft_clone(clone)
+            if dc is not None:
+                engine.spec_on = True
+                engine.draft_clone = dc
+                engine.spec_k = self.spec_k
+                engine.draft_pool = self.backend.init_draft_pool(
+                    kv.max_slots, kv.num_blocks, kv.bs)
+                if dc.cid not in self.spec_draft_cids:
+                    self.spec_draft_cids.append(dc.cid)
+            else:
+                self.spec_fallbacks += 1
+        if self.disagg:
+            pc = self._acquire_prefill_clone(clone)
+            if pc is not None:
+                engine.disagg_on = True
+                engine.prefill_clone = pc
+                ppool = self._prefill_pools.get(clone.cid)
+                if ppool is None:
+                    # worst-case blocks, no prefix index: the partner's
+                    # content is transient
+                    ppool = KVBlockPool(self.backend, self.max_batch,
+                                        self.block_size, None,
+                                        prefix_cache=False)
+                    self._prefill_pools[clone.cid] = ppool
+                else:
+                    ppool.reset()
+                engine.prefill_pool = ppool
+            else:
+                self.disagg_fallbacks += 1
+        return engine
+
+    def _claim_clone(self, type_name: str, exclude):
+        """A free RUNNING clone of ``type_name`` other than ``exclude``,
+        else one resumed or booted through the pool; marked busy.  None
+        when the pool has none to give."""
+        for c in self.pool.running_secondaries():
+            if (c is not exclude and not c.busy and c.serveable
+                    and c.ctype.name == type_name):
+                c.busy = True
+                return c
+        try:
+            clones, _ = self.pool.acquire(type_name, n=1,
+                                          exclude_primary=True)
+        except RuntimeError:            # the pool is at max_clones
+            return None
+        for c in clones:
+            if c is not exclude and c.serveable:
+                c.busy = True
+                return c
+        self.pool.release(clones)
+        return None
+
+    def _acquire_prefill_clone(self, decode_clone):
+        """Attach an engine to the shared disagg partner (refcounted): the
+        first engine claims a clone of the prefill tier, later ones bump
+        the count.  The decode clone is never a candidate."""
+        if (self._partner_clone is not None
+                and self._partner_clone.serveable):
+            self._partner_refs += 1
+            return self._partner_clone
+        c = self._claim_clone(self.disagg_prefill_type, decode_clone)
+        if c is not None:
+            self._partner_clone, self._partner_refs = c, 1
+        return c
+
+    def _release_partner(self) -> None:
+        """Drop one engine's reference on the shared partner; the last one
+        returns the clone to the pool."""
+        self._partner_refs = max(0, self._partner_refs - 1)
+        if self._partner_refs == 0 and self._partner_clone is not None:
+            self.pool.release([self._partner_clone])
+            self._partner_clone = None
+
+    def _acquire_draft_clone(self, verify_clone):
+        """A clone of the cheapest adequate tier (the ``spec_draft``
+        placement hint) as the engine's draft partner; never the verify
+        clone itself (the point is overlap)."""
+        t = self.placement.choose_type(self.fleet[0], hint="spec_draft") \
+            or self.fleet[0]
+        return self._claim_clone(t, verify_clone)
+
+    def _release_engine(self, engine: _SlotEngine) -> None:
+        """Return an engine's clone, and its draft partner, to the pool."""
+        clones = [engine.clone]
+        if engine.draft_clone is not None:
+            clones.append(engine.draft_clone)
+            engine.draft_clone = None
+            engine.spec_on = False
+        if engine.prefill_clone is not None:
+            engine.prefill_clone = None
+            engine.disagg_on = False
+            self._release_partner()
+        self.pool.release(clones)
 
     def _admit(self, engine: _SlotEngine, req: ServeRequest) -> None:
+        """Admit through the engine and fold its prefix-cache economics
+        into the counters; disagg-eligible cold prompts take a decode slot
+        and defer their prefill to the partner."""
+        if self._try_disagg_admit(engine, req):
+            self.prompt_tokens += self.prompt_pad   # fresh eff is pad-long
+            return
         info = engine.admit(req, self.prompt_pad)
         self.prefix_hit_tokens += info["cached"]
         self.prompt_tokens += info["prompt"]
         if info["restore"]:
             self.restored_tokens += info["suffix"]
+
+    def _try_disagg_admit(self, engine: _SlotEngine,
+                          req: ServeRequest) -> bool:
+        """Route a cold prompt to the partner when the planner says its
+        compute win beats the wire cost; restores and local prefix hits
+        stay co-located (resident blocks are cheaper than a remote
+        recompute)."""
+        if not engine.disagg_on or req.generated:
+            return False
+        eff = _SlotEngine.effective_prompt(req, self.prompt_pad,
+                                           engine.kv.capacity)
+        if engine.kv.match_prefix(eff)[2] > 0:
+            return False
+        if not self._disagg_worth(engine, len(eff)):
+            self.disagg_colocated += 1
+            return False
+        slot, new_ids, _, _ = engine.kv.alloc_slot(
+            eff, req.max_new_tokens, force_suffix=True)
+        ids = [int(b) for b in new_ids]
+        engine.disagg_joins.append((slot, req, eff, ids))
+        engine.disagg_blocks[slot] = ids
+        return True
 
     def _preempt_slot(self, engine: _SlotEngine, victim: int,
                       counts: np.ndarray) -> None:
@@ -1135,8 +1584,20 @@ class ClientHandler:
         ran, so nothing is lost) and requeue it at the head."""
         if engine.sfx_joins:
             slot, req, _, _, _ = engine.sfx_joins.pop()
-        else:
+        elif engine.joins:
             slot, req, _, _ = engine.joins.pop()
+        elif engine.disagg_joins:
+            # partner prefill not yet submitted: a free rollback too
+            slot, req, _, _ = engine.disagg_joins.pop()
+        else:
+            # a handoff whose copy never ran: the request restores with
+            # its first token carried, the partner's slot is dropped
+            slot, req, tok, t0, _, _, pslot = engine.migrations.pop()
+            req.generated = [tok]
+            req.first_token_t = t0
+            req.preemptions += 1
+            engine.prefill_pool.free_slot(pslot)
+        engine.disagg_blocks.pop(slot, None)
         engine.cow_pairs = [p for p in engine.cow_pairs if p[0] != slot]
         engine.kv.cancel_slot(slot)
         self.queue.requeue(req)
@@ -1152,7 +1613,8 @@ class ClientHandler:
                 kv.grow_for_window(counts)
                 return
             except PoolExhausted:
-                if engine.joins or engine.sfx_joins:
+                if (engine.joins or engine.sfx_joins or engine.migrations
+                        or engine.disagg_joins):
                     self._cancel_join(engine)
                     continue
                 cands = [(slot, s.req.priority, len(s.out))
@@ -1181,18 +1643,33 @@ class ClientHandler:
         the host before submission."""
         kv = engine.kv
         backend = self.backend
+        spec = engine.spec_on
+        # tokens each slot emits this step: min(window, budget left); a
+        # speculative round sizes each row's verify width k + 1 instead,
+        # k from the row's acceptance EMA, clamped so the current token is
+        # scored, a full accept fits the budget (k <= left - 1), and no
+        # window write needs the capacity - 1 pin (k <= capacity - 1 - pos)
         counts = np.zeros((kv.max_slots,), np.int32)
         for slot in np.nonzero(kv.active)[0]:
             s = engine.slots[slot]
-            counts[slot] = min(engine.window,
-                               s.req.max_new_tokens - len(s.out))
+            left = s.req.max_new_tokens - len(s.out)
+            if spec:
+                p = int(kv.pos[slot])
+                room = max(kv.capacity - 1 - min(p, kv.capacity - 1), 0)
+                k = max(1, int(round(s.req.spec_ema * engine.spec_k)))
+                k = max(min(k, engine.spec_k, left - 1, room), 0)
+                counts[slot] = k + 1
+            else:
+                counts[slot] = min(engine.window, left)
         if counts.any():
             self._grow_or_preempt(engine, counts)
         joins, engine.joins = engine.joins, []
         sfx, engine.sfx_joins = engine.sfx_joins, []
         cow, engine.cow_pairs = engine.cow_pairs, []
+        migs, engine.migrations = engine.migrations, []
         engine.submitted_joins = joins
         engine.submitted_sfx = sfx
+        engine.submitted_migrations = migs
         rows = np.nonzero(kv.active)[0]
         do_decode = rows.size > 0
         engine.decode_rows = rows if do_decode else None
@@ -1232,6 +1709,25 @@ class ClientHandler:
             cow_batch = (backend.copy_fn(), backend.tensor(src),
                          backend.tensor(dst))
             nbytes += 4 * cpad * 2
+        mig_batch = None
+        xfer_s = 0.0
+        if migs:
+            # the handoffs as one copy out of the engine's scratch pool,
+            # block ids padded to a power-of-two bucket with 0 -> 0 pads,
+            # billed per block on ``disagg_link`` (int8 + scales when
+            # compressed)
+            sids = [b for m in migs for b in m[4]]
+            dids = [b for m in migs for b in m[5]]
+            n_blk = len(sids)
+            bpad = pow2_bucket(n_blk)
+            mig_batch = (backend.migrate_fn(self.disagg_compress),
+                         engine.prefill_pool.pool,
+                         backend.tensor(sids + [0] * (bpad - n_blk)),
+                         backend.tensor(dids + [0] * (bpad - n_blk)))
+            dbytes = n_blk * self._disagg_block_bytes()
+            xfer_s = transfer_time(dbytes, LINKS[self.disagg_link])
+            self.kv_transfer_bytes += dbytes
+            self.kv_transfer_s += xfer_s
         sfx_batch = None
         mixed_batch = None
         if sfx:
@@ -1263,7 +1759,16 @@ class ClientHandler:
                     + sfx_args
             nbytes += int(stoks.nbytes)
 
+        if spec and do_decode:
+            # a speculative engine has no disagg partner: no migrations
+            return self._submit_spec_round(engine, counts, rows, join_batch,
+                                           cow_batch, sfx_batch, tables, pos,
+                                           nbytes)
+
         def step_fn(params, pool, tok, pos, steps_left, tables):
+            if mig_batch is not None:
+                mfn, *mig_args = mig_batch
+                pool = mfn(pool, *mig_args)
             firsts = None
             if join_batch is not None:
                 toks, blks, slots = join_batch
@@ -1289,20 +1794,203 @@ class ClientHandler:
 
         delay = (self.autoscaler.clone_ready_delay(engine.clone,
                                                    self.clock.now())
-                 + self._net_s(nbytes))
+                 + self._net_s(nbytes) + xfer_s)
         task = self.dispatcher.submit(
             engine.clone, step_fn,
             (backend.params, kv.pool, tok, pos, steps_left, tables),
             executor=self.executor, extra_delay=delay,
             label="step" if do_decode else "prefill")
         self._charge(engine.clone, task.venue_seconds)
-        engine.main_inflight = True
         return task
 
+    # ----------------------------------------------------- disagg prefill
+    def _submit_disagg_prefill(self, engine: _SlotEngine):
+        """Dispatch every pending disagg admission as one paged prefill on
+        the partner clone, into the engine's scratch pool (chunked through
+        the paged-prefill kernel, or stepwise when ``prefill_chunk`` is
+        0).  The handoff rides the engine's next step as a migration.
+        Returns the task or None."""
+        if engine.disagg_inflight or not engine.disagg_joins:
+            return None
+        ppool = engine.prefill_pool
+        rows, engine.disagg_joins = engine.disagg_joins, []
+        sub = []
+        for slot, req, eff, new_ids in rows:
+            # a bare-length alloc: the scratch pool indexes nothing, so it
+            # yields exactly the decode side's block count
+            pslot, p_ids, _, _ = ppool.alloc_slot(len(eff))
+            sub.append((slot, req, eff, new_ids, pslot,
+                        [int(b) for b in p_ids]))
+        engine.submitted_disagg = sub
+        jpad = pow2_bucket(len(sub))
+        tpad = pow2_bucket(max(len(e) for _, _, e, _, _, _ in sub))
+        ptoks = np.zeros((jpad, tpad), np.int32)
+        ppos = np.zeros((jpad,), np.int32)
+        pn = np.zeros((jpad,), np.int32)
+        ptabs = np.zeros((jpad, ppool.max_blk), np.int32)
+        for k, (_s, _r, eff, _n, pslot, _p) in enumerate(sub):
+            ptoks[k, :len(eff)] = eff
+            pn[k] = len(eff)
+            ptabs[k] = ppool.tables[pslot]
+        pw = self.backend.prefill_window_fn(ppool.bs, tpad,
+                                            chunk=engine.chunk)
+        delay = (self.autoscaler.clone_ready_delay(engine.prefill_clone,
+                                                   self.clock.now())
+                 + self._net_s(int(ptoks.nbytes)))
+        task = self.dispatcher.submit(
+            engine.prefill_clone, pw,
+            (self.backend.params, ppool.pool, self.backend.tensor(ptoks),
+             self.backend.tensor(ppos), self.backend.tensor(pn),
+             self.backend.tensor(ptabs)),
+            executor=self.executor, extra_delay=delay,
+            label="disagg_prefill")
+        self._charge(engine.prefill_clone, task.venue_seconds)
+        engine.disagg_inflight = True
+        return task
+
+    def _disagg_prefill_done(self, engine: _SlotEngine, task) -> None:
+        """Fold a partner prefill: stamp TTFT now (the first token exists
+        when the partner finishes) and queue each row's block copy into
+        the engine's next step as a ``"disagg"`` migration."""
+        firsts, engine.prefill_pool.pool = task.value
+        engine.disagg_inflight = False
+        sub, engine.submitted_disagg = engine.submitted_disagg, []
+        now = self.clock.now()
+        for (slot, req, _, new_ids, pslot, p_ids), ft in zip(
+                sub, firsts.cpu().numpy()):
+            req.first_token_t = now
+            req.token_ts = [now]
+            engine.migrations.append(
+                (slot, req, int(ft), now, p_ids, new_ids, pslot))
+
     def _pump(self, engine: _SlotEngine, inflight: Dict) -> None:
-        """Submit the engine's next step unless one is in flight."""
+        """Submit what the engine can run now: its next step unless one
+        is in flight and, independently, a partner prefill for pending
+        disagg admissions (the two overlap)."""
         if engine.step_work() and not engine.main_inflight:
             inflight[self._submit_engine_step(engine)] = engine
+            engine.main_inflight = True
+        pt = self._submit_disagg_prefill(engine)
+        if pt is not None:
+            inflight[pt] = engine
+
+    # ------------------------------------------------------- speculative
+    def _slot_history(self, engine: _SlotEngine, slot: int) -> List[int]:
+        """Tokens resident at positions ``0 .. kv.pos[slot] - 1`` of a
+        slot: the committed context the draft's catch-up replays."""
+        s = engine.slots[slot]
+        base = np.zeros((self.prompt_pad,), np.int32)
+        pr = s.req.prompt
+        base[:min(len(pr), self.prompt_pad)] = pr[:self.prompt_pad]
+        seq = base.tolist() + list(s.out)
+        return seq[:int(engine.kv.pos[slot])]
+
+    def _submit_spec_round(self, engine: _SlotEngine, counts, rows,
+                           join_batch, cow_batch, sfx_batch, tables, pos,
+                           nbytes):
+        """One speculative round: stash the verify closure (carrying the
+        round's join/CoW/suffix folds), then dispatch the draft
+        on the draft clone; the verify goes out when the draft completes,
+        or at once with zero drafts when every row clamped to k = 0."""
+        kv = engine.kv
+        backend = self.backend
+        act = kv.active.astype(bool)
+        k_arr = np.maximum(counts - 1, 0).astype(np.int32)
+        n_live = backend.tensor(counts)
+        tok_snap = engine.tok_host.copy()
+        prefill_into = engine.prefill_into
+        v_fn = backend.spec_verify_fn(kv.bs)
+        params, pool0 = backend.params, kv.pool
+
+        def verify_builder(drafts_np):
+            x = np.concatenate([tok_snap[:, None],
+                                drafts_np.astype(np.int32)], axis=1)
+
+            def step_fn(params, pool, toks, pos, n_live, tables):
+                firsts = None
+                if join_batch is not None:
+                    jtoks, blks, slots = join_batch
+                    firsts, pool = prefill_into(params, jtoks, pool, blks,
+                                                slots)
+                if cow_batch is not None:
+                    copy_into, src, dst = cow_batch
+                    pool = copy_into(pool, src, dst)
+                firsts_sfx = None
+                if sfx_batch is not None:
+                    pw, stoks, spos, sn, stabs = sfx_batch
+                    firsts_sfx, pool = pw(params, pool, stoks, spos, sn,
+                                          stabs)
+                greedy, pool = v_fn(params, pool, toks, pos, n_live, tables)
+                return firsts, firsts_sfx, greedy, pool
+
+            args = (params, pool0, backend.tensor(x), pos, n_live, tables)
+            return step_fn, args, nbytes + int(x.nbytes)
+
+        engine._verify_builder = verify_builder
+        engine._spec_round = k_arr
+        if int(k_arr.sum()) == 0:
+            return self._submit_spec_verify(
+                engine, np.zeros((kv.max_slots, engine.spec_k), np.int32),
+                np.zeros((kv.max_slots,), np.int32))
+        # draft: catch-up (committed tokens the draft pool has not
+        # ingested) + k greedy proposals, one dispatch
+        n_c = np.where(act, kv.pos - engine.dpos, 0).astype(np.int32)
+        tcpad = pow2_bucket(max(int(n_c.max()), 1))
+        ctoks = np.zeros((kv.max_slots, tcpad), np.int32)
+        for slot in rows:
+            if n_c[slot] > 0:
+                hist = self._slot_history(engine, slot)
+                ctoks[slot, :n_c[slot]] = hist[int(engine.dpos[slot]):]
+        d_fn = backend.spec_draft_fn(kv.bs, tcpad, engine.spec_k)
+        dargs = (backend.draft_params, engine.draft_pool,
+                 backend.tensor(ctoks),
+                 backend.tensor(np.where(act, engine.dpos, 0)),
+                 backend.tensor(n_c), backend.tensor(tok_snap[:, None]),
+                 pos, backend.tensor(k_arr), tables)
+        delay = (self.autoscaler.clone_ready_delay(engine.draft_clone,
+                                                   self.clock.now())
+                 + self._net_s(int(ctoks.nbytes)))
+        task = self.dispatcher.submit(
+            engine.draft_clone, d_fn, dargs, executor=self.executor,
+            extra_delay=delay, label="draft")
+        self._charge(engine.draft_clone, task.venue_seconds)
+        return task
+
+    def _spec_draft_done(self, engine: _SlotEngine, task):
+        """Fold a draft dispatch: keep the draft pool, corrupt proposals
+        on the host when asked (``_spec_rng``), advance the draft cursors
+        past what the draft ingested and proposed, chain the verify."""
+        drafts, dpool = task.value
+        engine.draft_pool = dpool
+        drafts = drafts.cpu().numpy().astype(np.int32)
+        k_arr = engine._spec_round
+        if self.spec_corruption > 0:
+            vocab = getattr(getattr(self.backend, "cfg", None),
+                            "vocab_size", None)
+            flips = self._spec_rng.random(drafts.shape) \
+                < self.spec_corruption
+            bumped = drafts + 1 if vocab is None else (drafts + 1) % vocab
+            drafts = np.where(flips, bumped, drafts).astype(np.int32)
+        rows = engine.decode_rows
+        if rows is not None:
+            engine.dpos[rows] = engine.kv.pos[rows] + k_arr[rows]
+        return self._submit_spec_verify(engine, drafts, k_arr)
+
+    def _submit_spec_verify(self, engine: _SlotEngine, drafts: np.ndarray,
+                            n_spec: np.ndarray):
+        """Dispatch the stashed verify closure with the round's
+        proposals."""
+        builder, engine._verify_builder = engine._verify_builder, None
+        step_fn, args, nbytes = builder(drafts)
+        engine.spec_pending = (drafts, np.asarray(n_spec, np.int32))
+        delay = (self.autoscaler.clone_ready_delay(engine.clone,
+                                                   self.clock.now())
+                 + self._net_s(nbytes))
+        task = self.dispatcher.submit(
+            engine.clone, step_fn, args, executor=self.executor,
+            extra_delay=delay, label="step")
+        self._charge(engine.clone, task.venue_seconds)
+        return task
 
     def _engine_step_done(self, engine: _SlotEngine, task,
                           completions: List[ServeCompletion]) -> bool:
@@ -1316,6 +2004,7 @@ class ClientHandler:
             t0 = int(ft)
             engine.slots[slot] = _Slot(req, [t0], now, token_ts=[now])
             engine.tok_host[slot] = t0
+            engine.dpos[slot] = 0       # the draft replays the history
             kv.active[slot] = True
         engine.submitted_joins = []
         firsts_sfx = [] if firsts_sfx is None else firsts_sfx.cpu().numpy()
@@ -1332,15 +2021,57 @@ class ClientHandler:
                 t0 = int(ft)
                 engine.slots[slot] = _Slot(req, [t0], now, token_ts=[now])
             engine.tok_host[slot] = t0
+            engine.dpos[slot] = 0
             kv.active[slot] = True
         engine.submitted_sfx = []
+        for slot, req, tok, t0, _, _, pslot in engine.submitted_migrations:
+            # a handoff landed: the slot resumes with its first token (the
+            # next decode input), the partner's scratch slot retires, and
+            # its blocks leave the pending set below
+            engine.slots[slot] = _Slot(req, [tok], t0,
+                                       token_ts=_carried_ts(req, 1))
+            engine.tok_host[slot] = tok
+            engine.dpos[slot] = 0
+            kv.active[slot] = True
+            self.disagg_handoffs += 1
+            engine.disagg_blocks.pop(slot, None)
+            engine.prefill_pool.free_slot(pslot)
+        engine.submitted_migrations = []
         kv.clear_pending()
+        # slots still waiting for their handoff keep their prompt blocks
+        # unshareable (clear_pending is pool-wide)
+        for ids in engine.disagg_blocks.values():
+            kv._pending.update(int(b) for b in ids)
         if engine.decode_rows is not None and nxt is not None:
             nxt = nxt.cpu().numpy()                     # (S, window)
             rows = engine.decode_rows
-            n = engine.decode_counts[rows]              # >= 1 per active row
+            spec_pend, engine.spec_pending = engine.spec_pending, None
+            if spec_pend is not None:
+                # the verify grid scored the current token and every
+                # proposal: accept the longest agreeing prefix and emit one
+                # more target token (the stepwise greedy stream)
+                drafts, n_spec = spec_pend
+                acc = model.spec_accept(nxt, drafts, n_spec)[rows]
+                n = (acc + 1).astype(np.int32)
+                self.spec_rounds += 1
+                self.spec_proposed += int(n_spec[rows].sum())
+                self.spec_accepted += int(acc.sum())
+                self.spec_tokens += int(n.sum())
+                for slot, a in zip(rows, acc.tolist()):
+                    k_i = int(n_spec[slot])
+                    if k_i > 0:     # the EMA sizes the row's next window
+                        req = engine.slots[slot].req
+                        req.spec_ema = 0.5 * req.spec_ema + 0.5 * (a / k_i)
+            else:
+                n = engine.decode_counts[rows]          # >= 1 per active row
             engine.tok_host[rows] = nxt[rows, n - 1]
             kv.pos[rows] = np.minimum(kv.pos[rows] + n, kv.capacity)
+            # the draft cursor never runs ahead of the committed context:
+            # rejected proposals' K/V is overwritten by the next catch-up
+            engine.dpos[rows] = np.minimum(engine.dpos[rows], kv.pos[rows])
+            if spec_pend is not None:
+                engine.spec_rounds_done += 1
+                self._maybe_drop_speculation(engine)
             # streamed delivery stamps interpolate within the dispatch
             t0 = getattr(task, "submitted_at", now)
             span = max(now - t0, 0.0)
@@ -1364,6 +2095,20 @@ class ClientHandler:
                 engine.slots[slot] = None
                 kv.free_slot(slot)
         return engine.alive()
+
+    def _maybe_drop_speculation(self, engine: _SlotEngine) -> None:
+        """When the engine's mean acceptance EMA collapses below 0.25
+        after 3 rounds, release the draft clone and decode plainly from
+        then on (sticky; counted as a fallback)."""
+        if not engine.spec_on or engine.spec_rounds_done < 3:
+            return
+        emas = [s.req.spec_ema for s in engine.slots if s is not None]
+        if emas and float(np.mean(emas)) < 0.25:
+            engine.spec_on = False
+            self.spec_fallbacks += 1
+            if engine.draft_clone is not None:
+                self.pool.release([engine.draft_clone])
+                engine.draft_clone = None
 
     # ------------------------------------------------------------------ run
     def run(self, requests: List[ServeRequest], *,
@@ -1392,11 +2137,21 @@ class ClientHandler:
                 for key, eng in engines.items():
                     self.ledger.update(key, eng.kv.free_slots)
                 # admit via on_assign so each fits() check sees the block
-                # allocations of earlier assignments in the same round
+                # allocations of earlier assignments in the same round;
+                # affinity routing prefers engines by cached-prefix depth,
+                # random is its control arm
+                prefer = None
+                if self.routing == "affinity":
+                    prefer = (lambda key, r:
+                              float(self._affinity_depth(engines[key].kv,
+                                                         r)))
+                elif self.routing == "random":
+                    prefer = lambda key, r: float(self._route_rng.random())
                 self.ledger.assign(
                     self.queue,
                     fits=lambda key, r: self._fits_slot(engines[key], r),
-                    on_assign=lambda key, r: self._admit(engines[key], r))
+                    on_assign=lambda key, r: self._admit(engines[key], r),
+                    prefer=prefer)
                 for eng in engines.values():
                     self._pump(eng, inflight)
             self.autoscaler.step(now, self._demand_buckets(),
@@ -1405,7 +2160,10 @@ class ClientHandler:
                 # first queued request some free clone can serve
                 picked = clone = None
                 for r in self.queue.snapshot():
-                    clone = self._free_clone(*self._placement_band(r))
+                    lo, hi = self._placement_band(r)
+                    pc = (self._best_affinity_cid(r)
+                          if self.routing == "affinity" else None)
+                    clone = self._free_clone(lo, hi, prefer_cid=pc)
                     if clone is not None:
                         picked = r
                         break
@@ -1477,13 +2235,23 @@ class ClientHandler:
                         if self._retire(cohort, completions):
                             inflight[self._submit_decode(cohort)] = cohort
                         continue
+                    if task.label == "draft":
+                        # half a round: chain the verify on the target
+                        inflight[self._spec_draft_done(unit, task)] = unit
+                        continue
+                    if task.label == "disagg_prefill":
+                        # the handoff rides the engine's next step (pumped
+                        # now: the engine may have been waiting on it)
+                        self._disagg_prefill_done(unit, task)
+                        self._pump(unit, inflight)
+                        continue
                     unit.main_inflight = False
                     if self._engine_step_done(unit, task, completions):
                         self._pump(unit, inflight)
                     else:
                         engines.pop(id(unit), None)
                         self.ledger.drop(id(unit))
-                        self.pool.release([unit.clone])
+                        self._release_engine(unit)
             elif i < len(reqs):
                 self.clock.advance_to(reqs[i].arrival_t)
             elif self.queue.depth > 0:
@@ -1534,7 +2302,17 @@ class ClientHandler:
                 self.clock.now()),
             cost_usd=self.pool.cost_usd(self.clock.now()),
             energy_j_by_type=dict(self.energy_j_by_type),
-            power_offs=self.pool.stats["offs"])
+            power_offs=self.pool.stats["offs"],
+            spec_rounds=self.spec_rounds,
+            spec_tokens=self.spec_tokens,
+            acceptance_rate=(self.spec_accepted
+                             / max(self.spec_proposed, 1)),
+            spec_fallbacks=self.spec_fallbacks,
+            disagg_handoffs=self.disagg_handoffs,
+            disagg_colocated=self.disagg_colocated,
+            disagg_fallbacks=self.disagg_fallbacks,
+            kv_transfer_bytes=self.kv_transfer_bytes,
+            kv_transfer_s=self.kv_transfer_s)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -1,4 +1,5 @@
-"""Unified model: specs, init, prefill forward, decode step, paged loops.
+"""Unified model: specs, init, prefill forward, decode step, paged loops,
+speculative verify and draft.
 
 Parameters are a nested dict of tensors with exactly the reference's key
 paths and shapes (``embed``, ``final_norm``, ``layers/stack/b{i}`` stacked
@@ -16,12 +17,13 @@ import functools
 import math
 from typing import Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.context import RunContext
-from repro_torch.models.layers import apply_norm, rope_tables
+from repro_torch.models.layers import apply_norm, matmul_f32, rope_tables
 from repro_torch.models.spec import (ParamSpec, init_params, map_specs,
                                      param_count, stack_specs)
 
@@ -243,13 +245,16 @@ def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict):
 
 
 def unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + vocab projection; logits in float32 (the product runs
-    in float32 so bf16 models keep full-precision logits)."""
-    x = apply_norm(x, params["final_norm"], cfg.norm_type).float()
+    """Final norm + vocab projection; logits in float32 from a float32
+    product of the activation-dtype operands (:func:`layers.matmul_f32`,
+    the reference's ``preferred_element_type=jnp.float32``).  A tied
+    embedding is read through its transpose view: no float32 copy of the
+    vocabulary matrix is made on the card."""
+    x = apply_norm(x, params["final_norm"], cfg.norm_type)
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].float().t())
+        logits = matmul_f32(x, params["embed"].t())
     else:
-        logits = torch.matmul(x, params["head"].float())
+        logits = matmul_f32(x, params["head"])
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -486,3 +491,65 @@ def mixed_loop(cfg: ModelConfig, params: Dict, cache: Dict,
         cur = torch.where(live, torch.clamp(cur + 1, max=capacity), cur)
         outs.append(tok)
     return torch.stack(outs, dim=1), first, cache
+
+
+def verify_window(cfg: ModelConfig, params: Dict, cache: Dict,
+                  tokens: torch.Tensor, pos0: torch.Tensor,
+                  n_live: torch.Tensor, ctx: RunContext, *,
+                  block_tables: torch.Tensor, block_size: int, capacity: int):
+    """Speculative verification: score a K+1 token window in one pass.
+
+    Row i of ``tokens`` (B, C) is the slot's current token followed by its
+    ``k_i`` draft proposals, of which the first ``n_live[i] = k_i + 1`` are
+    fed teacher-forced at positions ``pos0[i] ..`` through chunk mode (the
+    paged-prefill kernel on the card); every position is unembedded, so
+    ``greedy[i, j]`` is the target's next token after ``tokens[i, j]``.
+    Dead rows (``n_live == 0``) have their table row masked to 0 (trash
+    block); positions clamp at ``capacity - 1``, and callers keep
+    ``k_i <= capacity - 1 - pos0[i]``.  Returns (greedy (B, C) int32,
+    cache)."""
+    x = embed_tokens(cfg, params, tokens)
+    c = x.shape[1]
+    pos0 = _i32(pos0)
+    n_live = _i32(n_live)
+    eff_tables = torch.where((n_live > 0)[:, None], _i32(block_tables), 0)
+    positions = torch.clamp(pos0[:, None] + torch.arange(c, device=x.device),
+                            max=capacity - 1)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x, _ = _run_layers(cfg, params, x, ctx, rope, cache, "chunk",
+                       (pos0, n_live), capacity, _i32(eff_tables), block_size)
+    return _i32(torch.argmax(unembed(cfg, params, x), -1)), cache
+
+
+def draft_loop(cfg: ModelConfig, params: Dict, cache: Dict,
+               ctoks: torch.Tensor, cpos0: torch.Tensor,
+               n_ctok: torch.Tensor, tokens: torch.Tensor, pos: torch.Tensor,
+               k_live: torch.Tensor, ctx: RunContext, *,
+               block_tables: torch.Tensor, block_size: int,
+               catchup_steps: int, num_steps: int, capacity: int):
+    """Draft side of speculative decoding, on the draft model's own pool
+    indexed by the target's block tables: the catch-up teacher-forces the
+    ``n_ctok`` committed tokens the draft has not ingested from ``cpos0``
+    (:func:`prefill_loop`, skipped when ``catchup_steps`` is 0), then
+    ``k_live[i]`` greedy steps from the current token (:func:`decode_loop`).
+    Returns (drafts (B, num_steps) int32, cache)."""
+    if catchup_steps > 0:
+        _, cache = prefill_loop(cfg, params, cache, ctoks, cpos0, n_ctok,
+                                ctx, block_tables=block_tables,
+                                block_size=block_size,
+                                num_steps=catchup_steps, capacity=capacity)
+    return decode_loop(cfg, params, cache, tokens, pos, k_live, ctx,
+                       block_tables=block_tables, block_size=block_size,
+                       num_steps=num_steps, capacity=capacity)
+
+
+def spec_accept(greedy: np.ndarray, drafts: np.ndarray,
+                n_spec: np.ndarray) -> np.ndarray:
+    """Longest-matching-prefix acceptance (host side): row i accepts the
+    longest ``a <= n_spec[i]`` with ``drafts[i, j] == greedy[i, j]`` for
+    every ``j < a``; the emitted tokens ``greedy[i, :a + 1]`` are what
+    ``a + 1`` stepwise greedy steps give.  Returns accepts (B,) int64."""
+    k = drafts.shape[1]
+    m = np.asarray(greedy)[:, :k] == np.asarray(drafts)
+    m &= np.arange(k)[None, :] < np.asarray(n_spec)[:, None]
+    return np.cumprod(m, axis=1).sum(axis=1).astype(np.int64)

@@ -345,7 +345,9 @@ def test_paged_prefill_matches_plain_version(d):
     kernel is built for the configs' head dims) for GQA groups 1, 3 and 8
     (the 64-row tile of qwen2.5-3b's heads at C 8), block 8 and 16, chunks
     1, 8 and 64 (512 rows per kv-head at g 8: four 128-row tiles), slots at
-    pos0 0, bs - 1, 300 and 3000 with n_live 0, 1, partial and C, and
+    pos0 0, bs - 1, 300 and 3000 with n_live 0, 1, partial and C, the
+    speculative verify chunks C 2-5 with ragged n_live and windows ending
+    at a 3008-token capacity (pos0 = 3008 - n_live), and
     out-of-pool table ids past each slot's reach; rows at chunk positions
     >= n_live must be exact zeros.  At pos0 3000 each of the cluster's 8
     ranks walks several 64-key tiles (the ring wraps, the softmax rescales
@@ -357,6 +359,9 @@ def test_paged_prefill_matches_plain_version(d):
                     "mode); chip_smoke.py runs the same comparison")
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
+    # the verify chunks draw from their own generator: the other cases
+    # keep the draws they always had
+    rng_verify = np.random.default_rng(12)
     hkv = 2
     dtypes = [(torch.float32, 2e-5, 1e-5)]
     if d in ops.FLASH_TC_HEAD_DIMS:
@@ -366,14 +371,24 @@ def test_paged_prefill_matches_plain_version(d):
         i_ = lambda x: _t(x).to(dev)               # noqa: E731
         for g in (1, 3, 8):
             for bs in (8, 16):
-                for c in (1, 8, 64):
-                    pos0 = np.array([0, bs - 1, 300, 300, bs - 1, 3000,
-                                     3000], np.int32)
-                    n_live = np.array([c, 1, max(1, c // 2 + 1), 0, c, c,
-                                       max(1, c // 2 + 1)], np.int32)
+                for c in (1, 2, 3, 4, 5, 8, 64):
+                    if 2 <= c <= 5:
+                        # the speculative verify window (C = K + 1): ragged
+                        # n_live, a dead row, two windows ending at 3008
+                        # (pos0 = capacity - n_live at a 3008 capacity)
+                        pos0 = np.array([0, bs - 1, 300, 300, 3008 - c, 3007,
+                                         3000], np.int32)
+                        n_live = np.array([c, 1, c // 2 + 1, 0, c, 1, c - 1],
+                                          np.int32)
+                    else:
+                        pos0 = np.array([0, bs - 1, 300, 300, bs - 1, 3000,
+                                         3000], np.int32)
+                        n_live = np.array([c, 1, max(1, c // 2 + 1), 0, c, c,
+                                           max(1, c // 2 + 1)], np.int32)
                     b = len(pos0)
                     kp, vp, tables, wild, q = _prefill_case(
-                        rng, b, c, g * hkv, hkv, d, bs, pos0, n_live)
+                        rng_verify if 2 <= c <= 5 else rng, b, c, g * hkv,
+                        hkv, d, bs, pos0, n_live)
                     before = ops.launches["paged_prefill"]
                     got = ops.paged_prefill(c_(q), c_(kp), c_(vp), i_(wild),
                                             i_(pos0), i_(n_live))
@@ -389,7 +404,7 @@ def test_paged_prefill_matches_plain_version(d):
                                                atol=atol, rtol=rtol)
                     for s, n in enumerate(n_live):
                         assert not got[s, n:].any()
-                        if pos0[s] == 3000:
+                        if pos0[s] >= 3000 and n:
                             w = want[s, :n].float()
                             err = (got[s, :n].float() - w).abs().max()
                             assert err <= 0.05 * w.pow(2).mean().sqrt()

@@ -169,13 +169,9 @@ def _pool_leaves(pool):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(routing="random"), "routing='random'"),
-    (dict(speculative=True), "verify/spec"),
-    (dict(disagg=True), "disagg"),
     (dict(hedge_factor=2.0), "faults/hedging"),
     (dict(faults=[object()]), "faults/hedging"),
     (dict(gateway=object()), "faults/hedging/gateway"),
-    (dict(routing="affinity"), "later slice"),
 ])
 def test_unported_handler_options_raise(kw, match):
     b = _backends()
