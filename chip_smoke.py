@@ -107,7 +107,28 @@ the kernel path against the plain path.  Phases:
 15. parity  — uncompressed disagg streams in float32 with impl="cuda" held
               to the co-located impl="torch" streams under phase 5's
               near-tie rule; the int8 handoff finishes every request at
-              under half the float32 wire bytes.
+              under half the float32 wire bytes;
+16. chaos   — smollm-360m in bfloat16, phase 4's trace and paged settings
+              on the chaos fleet (6 slots per engine, 3 secondaries, one
+              spare RUNNING clone, hedge_min_samples 4, NVLink clone
+              link), each closure run once on a fixed timeline: faultless,
+              then a drain, a kill (both for 2 s) and a permanent kill of
+              the primary at half the makespan, and a 40x slowdown of it
+              at 0.6 of the makespan with hedge_factor 2.  Every request
+              finishes, every surviving pool's blocks add up, the drain
+              migrates slots (the exactly equal migrated streams are
+              counted), the kills restore and do not migrate, the hedge
+              fires and wins, paged_decode and paged_prefill launch in
+              the recovery runs, and every stream is held to the
+              faultless one under the near-tie rule (in bfloat16 the
+              bound is twice the plain path's logit error against
+              float32 at that step).  Then a gated run: an interactive
+              tenant with a 5 s deadline, a batch tenant and an exact
+              repeat of a served prompt, which comes back from the
+              gateway's cache; prints slo_attainment and goodput_tps;
+17. parity  — the drain, kill and hedged runs in float32 with impl="cuda"
+              held to the faultless impl="torch" streams under phase 5's
+              near-tie rule.
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -164,7 +185,7 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 15
+PHASES = 17
 
 
 def fail(msg):
@@ -1041,13 +1062,16 @@ def cut_depth(model, cfg, params, depth):
             dict(params, layers=layers))
 
 
-def serve(torch, backend, reqs, executor=None, **kw):
+def serve(torch, backend, reqs, executor=None, setup=None, **kw):
     """Serve ``reqs`` through ``ClientHandler`` (phase 4's paged settings
-    unless ``kw`` overrides them); every request must finish its budget."""
+    unless ``kw`` overrides them; ``setup(handler)`` runs before the
+    trace); every request must finish its budget."""
     from repro_torch.launch.serve import ClientHandler
     kw = {"prompt_pad": PROMPT_PAD, "decode_window": 4, "max_secondaries": 0,
-          **kw}
-    h = ClientHandler(backend, max_batch=MAX_BATCH, executor=executor, **kw)
+          "max_batch": MAX_BATCH, **kw}
+    h = ClientHandler(backend, executor=executor, **kw)
+    if setup is not None:
+        setup(h)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = h.run(reqs)
@@ -1102,8 +1126,8 @@ def counted(ops, fn, tally):
     return run
 
 
-def near_tie(torch, backend, req, generated, prompt_pad):
-    """Top-two logit gap of the plain path at the step that produced
+def logits_at(torch, backend, req, generated, prompt_pad):
+    """float32 logits of ``backend`` at the step that produced
     ``generated[-1]``: prefill of the padded prompt, then one decode step
     per earlier token (a contiguous cache; valid for every family)."""
     import numpy as np
@@ -1118,8 +1142,7 @@ def near_tie(torch, backend, req, generated, prompt_pad):
         pos = min(prompt_pad + i, backend.capacity - 1)
         logits, cache = model.decode_step(cfg, params, cache,
                                           backend.tensor([[tok]]), pos, ctx)
-    top = torch.topk(logits[0].float(), 2).values
-    return float(top[0] - top[1])
+    return logits[0].float()
 
 
 def parity(torch, cfg32, params, capacity, trace_fn, prompt_pad, **kw):
@@ -1143,23 +1166,34 @@ def parity(torch, cfg32, params, capacity, trace_fn, prompt_pad, **kw):
                   runs["torch"][0], prompt_pad)
 
 
-def hold_to_plain(torch, plain, reqs, got, want, prompt_pad):
-    """Fails unless the streams ``got`` equal the plain path's ``want``, or
-    each first mismatch is a near-tie (top-two logit gap of the plain
-    backend ``plain`` < 1e-4)."""
+def hold_to_plain(torch, plain, reqs, got, want, prompt_pad, truth=None):
+    """Fails unless the streams ``got`` equal ``want``, or each first
+    mismatch is a near-tie: the top-two logit gap of the plain backend
+    ``plain`` at that step under 1e-4 (float32), or, when ``truth`` (the
+    plain path in float32 on the same weights) is given for a bfloat16
+    ``plain``, under twice the largest logit error of ``plain`` against
+    ``truth`` at that step (two bfloat16 evaluations each err by up to
+    that much).  Returns the number of identical streams."""
     reqs = {r.rid: r for r in reqs}
     mismatched = first_mismatches(got, want)
     for rid, j in mismatched:
-        gap = near_tie(torch, plain, reqs[rid], want[rid][:j + 1],
-                       prompt_pad)
+        logits = logits_at(torch, plain, reqs[rid], want[rid][:j + 1],
+                           prompt_pad)
+        top = torch.topk(logits, 2).values
+        gap, bound = float(top[0] - top[1]), 1e-4
+        if truth is not None:
+            exact = logits_at(torch, truth, reqs[rid], want[rid][:j + 1],
+                              prompt_pad)
+            bound = 2 * float((logits - exact).abs().max())
         log(f"  request {rid}: first mismatch at token {j}, plain-path "
-            f"top-two gap {gap:.3e}")
-        if gap >= 1e-4:
+            f"top-two gap {gap:.3e} (near-tie bound {bound:.3e})")
+        if gap >= bound:
             fail(f"request {rid}: token streams differ at {j} "
-                 f"(gap {gap} is no near-tie)")
+                 f"(gap {gap} is no near-tie, bound {bound})")
     log(f"  {len(want) - len(mismatched)}/{len(want)} streams identical"
         + (f", {len(mismatched)} near-tie(s) accepted" if mismatched
            else ""))
+    return len(want) - len(mismatched)
 
 
 def first_mismatches(got, want):
@@ -1465,6 +1499,215 @@ def disagg_parity(torch, cfg):
     del params
 
 
+# phases 16-17: the chaos fleet.  Six slots per engine split phase 4's
+# trace over the primary (6 requests) and the spare (2), so a survivor has
+# room to take migrated slots; every fault lands on the primary (cid 0),
+# which serves most of the trace; the clone link is NVLink, so a hedge's
+# KV context crosses it in time to race the straggler (over the default
+# wifi link a full-width context takes longer than the slowed step)
+CHAOS = dict(max_batch=6, max_secondaries=3, hedge_min_samples=4,
+             link="nvlink")
+CHAOS_CID = 0
+
+
+def chaos_faults(span):
+    """(name, fault dicts, hedge_factor) of the chaos runs, the fault
+    times relative to the faultless run's makespan ``span``."""
+    at = dict(cid=CHAOS_CID)
+    return [("drain", [dict(at=0.5 * span, kind="drain", duration=2.0,
+                            **at)], 0.0),
+            ("kill", [dict(at=0.5 * span, kind="kill", duration=2.0, **at)],
+             0.0),
+            ("permanent_kill", [dict(at=0.5 * span, kind="kill", **at)], 0.0),
+            ("slow_hedged", [dict(at=0.6 * span, kind="slow",
+                                  duration=0.4 * span, factor=40.0, **at)],
+             2.0)]
+
+
+def block_leaks(h):
+    """Block accounting of every surviving pool: each block's refcount
+    equals its slot-table references, and free + cached-free + live
+    blocks are every allocatable block.  Returns the faults found."""
+    import numpy as np
+    bad = []
+    for cid, kv in h._kv_pools.items():
+        refs = np.zeros(kv.num_blocks, np.int64)
+        for slot in range(kv.max_slots):
+            for j in range(int(kv.n_blocks_of[slot])):
+                refs[kv.tables[slot, j]] += 1
+        if (refs[1:] != kv.ref[1:]).any():
+            bad.append(f"clone {cid}: refcounts differ from table references")
+        live = set(np.nonzero(kv.ref)[0].tolist())
+        if set(kv._free_blocks) | set(kv._cached_free) | live \
+                != set(range(1, kv.num_blocks)):
+            bad.append(f"clone {cid}: free + cached + live != all blocks")
+    return bad
+
+
+def chaos_run(torch, backend, faults, hedge, executor, reqs=None, **kw):
+    """One run on the chaos fleet (one spare RUNNING clone) under
+    ``faults``; the slots that migrate and the requests that restore are
+    recorded on the handler.  Fails on a leaked block."""
+    from repro_torch.core.clones import CloneState
+    from repro_torch.core.faults import CloneFault
+
+    def setup(h):
+        h.pool.provision(h.clone_type, 1, state=CloneState.RUNNING)
+        h.moved, h.lost = [], []
+        migrate, requeue = h._try_migrate, h._requeue_lost
+
+        def try_migrate(src, slot, st, engines):
+            ok = migrate(src, slot, st, engines)
+            if ok:
+                h.moved.append(st.req.rid)
+            return ok
+
+        def requeue_lost(req):
+            h.lost.append(req.rid)
+            requeue(req)
+        h._try_migrate, h._requeue_lost = try_migrate, requeue_lost
+
+    out = serve(torch, backend, reqs or trace(backend.cfg.vocab_size),
+                executor=executor, setup=setup, hedge_factor=hedge,
+                faults=[CloneFault(**f) for f in faults] or None,
+                **CHAOS, **kw)
+    bad = block_leaks(out[2])
+    if bad:
+        fail(f"chaos: {bad}")
+    return out
+
+
+def chaos_serving(torch, cfg):
+    """Phase 16: smollm-360m at full width in bf16 on the chaos fleet,
+    phase 4's trace and paged settings, each closure run once and timed on
+    a fixed timeline (fault times and hedges land alike in every run):
+    faultless, drain, kill and permanent kill of the primary at half the
+    makespan, and a 40x slowdown at 0.6 of it with hedging.  Every
+    request finishes, no block leaks, the drain migrates, the kills
+    restore and do not migrate, the hedge fires and wins, paged_decode
+    and paged_prefill launch in every recovery run, and each stream is
+    held to the faultless one under the near-tie rule (bfloat16 bound:
+    the plain path's error against float32); the migrated streams that
+    stay exactly equal are counted.  Then one gated run: an interactive
+    tenant with a deadline, a batch tenant and an exact repeat of a served
+    prompt, which must come back from the gateway's cache.  Returns the
+    launches per run."""
+    from repro_torch.core.gateway import StreamingGateway, TenantPolicy
+    from repro_torch.core.scheduler import ServeRequest
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
+    plain = LMBackend(cfg, capacity=CAPACITY, params=backend.params,
+                      device="cuda", impl="torch")
+    # the bfloat16 weights in float32: the near-tie rule's truth
+    truth = LMBackend(dataclasses.replace(cfg, dtype="float32"),
+                      capacity=CAPACITY, device="cuda", impl="torch",
+                      params=model.tree_map(lambda t: t.float(),
+                                            backend.params))
+    out, base = {}, None
+    for name, faults, hedge in [("faultless", [], 0.0)] + chaos_faults(0):
+        if base is not None:
+            faults = [f for n, f, _ in chaos_faults(base[1].makespan_s)
+                      if n == name][0]
+        steps = []
+        ops.reset_launches()
+        toks, rep, h, wall, reqs = chaos_run(
+            torch, backend, faults, hedge, timed_fixed(torch, steps))
+        got = dict(ops.launches)
+        log(f"  {name}: makespan {rep.makespan_s:.4f} s (virtual), wall "
+            f"{wall:.4f} s; faults {rep.faults_injected}, migrated "
+            f"{rep.recoveries_migrated} {sorted(h.moved)}, restored "
+            f"{rep.recoveries_restored} {sorted(set(h.lost))}, hedges "
+            f"{rep.hedges_fired}/{rep.hedge_wins} won, breaker opens "
+            f"{rep.breaker_opens}; closures (count, median ms) "
+            f"{step_times(steps)}; launches {got}")
+        if name == "faultless":
+            base = (toks, rep)
+            out[name] = got
+            continue
+        same = hold_to_plain(torch, plain, reqs, toks, base[0], PROMPT_PAD,
+                             truth=truth)
+        if name == "drain":
+            if rep.recoveries_migrated < 1:
+                fail("chaos (drain): no slot migrated")
+            equal = sum(toks[r] == base[0][r] for r in h.moved)
+            log(f"  drain: {equal}/{len(h.moved)} migrated streams exactly "
+                f"equal to the faultless run's ({same}/{len(toks)} in all)")
+        elif name in ("kill", "permanent_kill"):
+            if rep.recoveries_restored < 1 or rep.recoveries_migrated != 0:
+                fail(f"chaos ({name}): restored {rep.recoveries_restored}, "
+                     f"migrated {rep.recoveries_migrated}")
+        elif rep.hedges_fired < 1 or rep.hedge_wins < 1:
+            fail(f"chaos (slow): hedges {rep.hedges_fired}/{rep.hedge_wins}")
+        if rep.faults_injected != 1:
+            fail(f"chaos ({name}): {rep.faults_injected} faults fired")
+        if name != "slow_hedged":
+            for kname in ("paged_decode", "paged_prefill"):
+                if got[kname] <= 0:
+                    fail(f"chaos ({name}): {kname} never launched")
+        out[name] = got
+
+    # the gated run: every other request interactive with a deadline, and
+    # an exact repeat of request 3 after the trace has been served
+    reqs = trace(cfg.vocab_size)
+    for r in reqs:
+        r.tenant = r.slo = "interactive" if r.rid % 2 == 0 else "batch"
+        r.deadline_s = 5.0 if r.rid % 2 == 0 else None
+    reqs.append(ServeRequest(8, reqs[3].prompt.copy(), NEW_TOKENS,
+                             arrival_t=base[1].makespan_s + 0.5,
+                             tenant="batch", slo="batch"))
+    gw = StreamingGateway(tenants={"interactive": TenantPolicy(weight=4.0),
+                                   "batch": TenantPolicy()})
+    ops.reset_launches()
+    toks, rep, _, wall, _ = chaos_run(torch, backend, [], 0.0,
+                                      timed_fixed(torch, []), reqs=reqs,
+                                      gateway=gw)
+    got = dict(ops.launches)
+    cached = [c.rid for c in rep.completions if c.cached]
+    log(f"  gated: {rep.summary()}")
+    log(f"  gated: slo_attainment {rep.slo_attainment}, goodput_tps "
+        f"{rep.goodput_tps:.4f} (virtual), per tenant {rep.per_tenant}, "
+        f"cached {cached}, wall {wall:.4f} s; launches {got}")
+    if cached != [8] or toks[8] != toks[3]:
+        fail(f"gated: the repeat was not served from the cache ({cached})")
+    if rep.gateway_rejected or rep.gateway_shed:
+        fail(f"gated: rejected {rep.gateway_rejected}, shed "
+             f"{rep.gateway_shed}")
+    out["gated"] = got
+    return out
+
+
+def chaos_parity(torch, cfg):
+    """Phase 17: float32 smollm-360m at full width (random weights from
+    seed 0) on the chaos fleet: the drain, kill and hedged runs with
+    impl="cuda" held to the faultless impl="torch" streams under phase
+    5's near-tie rule."""
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    fixed = lambda c, f, a: (f(*a), 0.05)          # noqa: E731
+    plain = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
+                      impl="torch")
+    want, rep, _, wall, reqs = chaos_run(torch, plain, [], 0.0, fixed)
+    log(f"  impl=torch, faultless: wall {wall:.4f} s, makespan "
+        f"{rep.makespan_s:.4f} s (virtual)")
+    cuda = LMBackend(cfg32, capacity=CAPACITY, params=params, device="cuda",
+                     impl="cuda")
+    for name, faults, hedge in chaos_faults(rep.makespan_s):
+        if name == "permanent_kill":
+            continue
+        got, r, h, wall, _ = chaos_run(torch, cuda, faults, hedge, fixed)
+        log(f"  impl=cuda, {name}: wall {wall:.4f} s, migrated "
+            f"{r.recoveries_migrated} {sorted(h.moved)}, restored "
+            f"{r.recoveries_restored}, hedges {r.hedges_fired}/"
+            f"{r.hedge_wins}")
+        hold_to_plain(torch, plain, reqs, got, want, PROMPT_PAD)
+    del params
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -1629,13 +1872,28 @@ def main():
     log(f"[15/{PHASES} disagg parity] smollm-360m float32, disagg "
         "impl=cuda vs co-located impl=torch, same weights")
     disagg_parity(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[16/{PHASES} chaos] smollm-360m full width, bfloat16, faults on "
+        "the primary (drain, kill, permanent kill, slow + hedge), then the "
+        "SLO gateway")
+    chaos_launches = chaos_serving(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[17/{PHASES} chaos parity] smollm-360m float32, drain / kill / "
+        "hedge impl=cuda vs faultless impl=torch, same weights")
+    chaos_parity(torch, cfg)
 
     # launches per serving path, each counted from 0 over its own run
-    # (spec: both drafts' runs; disagg: both handoff runs)
+    # (spec: both drafts' runs; disagg: both handoff runs; chaos: the five
+    # fault runs and the gated run)
     by_path = {
         name: {"smollm": launches[name], "qwen": qwen_launches[name],
                "spec": sum(r[name] for r in spec_launches.values()),
-               "disagg": sum(r[name] for r in disagg_launches.values())}
+               "disagg": sum(r[name] for r in disagg_launches.values()),
+               "chaos": sum(r[name] for r in chaos_launches.values())}
         for name in ("paged_decode", "paged_prefill", "flash_attention")}
     by_path["flash_attention"]["recurrentgemma"] = \
         rg_launches["flash_attention"]

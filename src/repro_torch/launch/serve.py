@@ -32,15 +32,27 @@ longest agreeing prefix, so the streams are the plain greedy streams.
 Disaggregated prefill (ADR-009) prefills cold prompts on a shared partner
 clone and hands their KV blocks to the decode pool inside the engine's next
 step, optionally through the int8 pair; ``routing="affinity"`` prefers
-engines and clones by prefix-match depth.  Fault injection and hedging, the
-SLO gateway and the legacy ``ServingEngine`` raise ``NotImplementedError``
-naming their ROADMAP item.
+engines and clones by prefix-match depth.
+
+Fault tolerance (ADR-006): a :class:`~repro_torch.core.faults.FaultInjector`
+kills, drains or slows clones on the clock; the handler migrates a drained
+engine's slots to a survivor's pool (a ``"recover"`` migration folded by the
+survivor's next step) and restores a killed one's by re-prefilling them, and
+``hedge_factor`` races a straggling step on a second clone.  A
+:class:`~repro_torch.core.gateway.StreamingGateway` in front of the queue
+applies tenant quotas, fair share, shedding and a response cache (ADR-007).
+The legacy ``ServingEngine`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 KV caches are updated in place, recurrent state is replaced.  Every step
 closure is idempotent (each write is a function of the step's inputs,
 attention writes before it reads, and no input other than the KV cache is
 mutated), so an executor may re-run a closure, as
-:class:`~repro_torch.core.venues.Venue` does to stabilise its timing.
+:class:`~repro_torch.core.venues.Venue` does to stabilise its timing and a
+hedge does on a second clone.  A clone that dies with a step in flight has
+already had that step's writes land in its pool: a drain migrates the
+blocks up to the slot's cursor, and the survivor rewrites every position
+from the cursor on before it attends to it.
 """
 from __future__ import annotations
 
@@ -58,6 +70,8 @@ from repro_torch.core.clones import (CLONE_TYPES, KV_SCALE_BY_CLONE_TYPE,
                                      ClonePool)
 from repro_torch.core.dispatch import Dispatcher
 from repro_torch.core.energy import GpuEnergyModel
+from repro_torch.core.faults import CloneFault, FaultInjector
+from repro_torch.core.gateway import StreamingGateway
 from repro_torch.core.policy import Policy
 from repro_torch.core.scheduler import (AdmissionQueue, FleetAutoscaler,
                                         PlacementEngine, ServeCompletion,
@@ -706,9 +720,10 @@ class _SlotEngine:
         self.joins: List[tuple] = []        # (slot, req, eff, blk_ids)
         self.sfx_joins: List[tuple] = []    # (slot, req, sfx, pos0, restore)
         self.cow_pairs: List[tuple] = []    # (slot, src, dst) this round
-        # handoffs from the disagg partner's scratch pool, folded into the
-        # next step as a device copy: (slot, req, first_token,
-        # first_token_t, src_ids, dst_ids, src_slot)
+        # inbound KV moves folded into the next step as a device copy:
+        # (slot, req, out, first_token_t, src_pool, src_ids, dst_ids,
+        # src_slot, n_tokens, kind), kind "disagg" (a handoff from the
+        # partner's scratch pool) or "recover" (a drained clone's slot)
         self.migrations: List[tuple] = []
         self.submitted_joins: List[tuple] = []
         self.submitted_sfx: List[tuple] = []
@@ -877,21 +892,61 @@ class ServeReport:
     disagg_fallbacks: int = 0
     kv_transfer_bytes: float = 0.0
     kv_transfer_s: float = 0.0
+    # fault tolerance (ADR-006): fired clone faults (kills, drains and
+    # slowdowns), in-flight requests whose KV blocks moved to a survivor,
+    # those requeued to re-prefill, straggling steps raced on a second
+    # clone and the races the duplicate won, breaker open transitions
+    faults_injected: int = 0
+    recoveries_migrated: int = 0
+    recoveries_restored: int = 0
+    hedges_fired: int = 0
+    hedge_wins: int = 0
+    breaker_opens: int = 0
+    # the SLO gateway (ADR-007): per SLO class the fraction of *offered*
+    # requests served inside their deadline (no deadline counts as met;
+    # rejected, shed or dropped work as missed), deadline-meeting tokens
+    # per second (cache hits included), backlog sheds, up-front
+    # rejections, Retry-After replays, exact-match cache hits, sheds per
+    # class, served / p50 TTFT / p50 TPOT per tenant, and the deepest
+    # admission queue (gateway backlog included)
+    slo_attainment: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    goodput_tps: float = 0.0
+    gateway_shed: int = 0
+    gateway_rejected: int = 0
+    gateway_retries: int = 0
+    cache_hits: int = 0
+    shed_by_slo: Dict[str, int] = dataclasses.field(default_factory=dict)
+    per_tenant: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+    peak_queue_depth: int = 0
 
     def summary(self) -> str:
-        return (f"served={len(self.completions)} shed={self.rejected} "
-                f"p50={self.p50_latency_s:.3f}s p99={self.p99_latency_s:.3f}s "
-                f"ttft50={self.p50_ttft_s:.3f}s "
-                f"tok/s={self.tokens_per_s:.1f} "
-                f"kv={self.kv_mode} kv_util={self.kv_util:.0%} "
-                f"prefix_hits={self.prefix_hit_rate:.0%} "
-                f"preempt={self.preemptions} "
-                f"peak_secondaries={self.peak_secondaries}")
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ported in a later slice "
-                               f"(ROADMAP Queue 1: {item})")
+        """One-line digest; the fault and gateway parts appear only when
+        a fault or hedge fired or the gateway shed, rejected, retried or
+        answered from its cache."""
+        out = (f"served={len(self.completions)} shed={self.rejected} "
+               f"p50={self.p50_latency_s:.3f}s p99={self.p99_latency_s:.3f}s "
+               f"ttft50={self.p50_ttft_s:.3f}s "
+               f"tok/s={self.tokens_per_s:.1f} "
+               f"kv={self.kv_mode} kv_util={self.kv_util:.0%} "
+               f"prefix_hits={self.prefix_hit_rate:.0%} "
+               f"preempt={self.preemptions} "
+               f"peak_secondaries={self.peak_secondaries}")
+        if self.faults_injected or self.hedges_fired:
+            out += (f" faults={self.faults_injected} "
+                    f"migrated={self.recoveries_migrated} "
+                    f"restored={self.recoveries_restored} "
+                    f"hedges={self.hedges_fired}/{self.hedge_wins}")
+        if (self.gateway_shed or self.gateway_rejected
+                or self.gateway_retries or self.cache_hits):
+            slo = " ".join(f"{k}:{v:.0%}"
+                           for k, v in sorted(self.slo_attainment.items()))
+            out += (f" slo=[{slo}] goodput={self.goodput_tps:.1f} "
+                    f"gw_shed={self.gateway_shed} "
+                    f"gw_rejected={self.gateway_rejected} "
+                    f"cache_hits={self.cache_hits}")
+        return out
 
 
 class ClientHandler:
@@ -929,14 +984,23 @@ class ClientHandler:
                  disagg_compress: bool = False,
                  disagg_min_prompt: Optional[int] = None,
                  disagg_prefill_type: Optional[str] = None,
-                 faults=None, hedge_factor: float = 0.0, gateway=None):
+                 faults: Optional[List[CloneFault]] = None,
+                 hedge_factor: float = 0.0,
+                 hedge_quantile: float = 0.95,
+                 hedge_min_samples: int = 8,
+                 gateway: Optional[StreamingGateway] = None):
         if kv not in ("paged", "contiguous"):
             raise ValueError(f"kv must be 'paged' or 'contiguous': {kv!r}")
-        if faults or hedge_factor > 0:
-            raise _later("fault injection and hedging",
-                         "faults/hedging/gateway")
-        if gateway is not None:
-            raise _later("the SLO gateway", "faults/hedging/gateway")
+        # fault tolerance (ADR-006); a hedge re-runs a step closure on the
+        # engine's own pool, which the idempotent closures allow (the
+        # reference refuses hedging with a donated pool; the port has none)
+        if faults and kv != "paged":
+            raise ValueError("fault injection requires kv='paged' — the "
+                             "contiguous cohort keeps no per-slot restore "
+                             "state, so a clone death would lose tokens")
+        if hedge_factor > 0 and kv != "paged":
+            raise ValueError("hedged dispatch races _SlotEngine decode "
+                             "windows; it requires kv='paged'")
         # speculative decoding (ADR-008)
         if speculative:
             if kv != "paged":
@@ -1134,6 +1198,26 @@ class ClientHandler:
         self.kv_transfer_bytes = 0.0
         self.kv_transfer_s = 0.0
         self._disagg_blk_bytes: Optional[int] = None
+        # the SLO gateway shares the serving timeline; it hears of a kill
+        # or drain at the fault instant (the capacity-loss signal)
+        self.gateway = gateway
+        if gateway is not None:
+            gateway.adopt_clock(self.clock)
+        self.injector = (FaultInjector(
+            self.pool, faults,
+            on_fire=(gateway.note_fault if gateway is not None else None))
+            if faults else None)
+        self._peak_queue_depth = 0
+        self.hedge_factor = hedge_factor
+        self.hedge_quantile = hedge_quantile
+        self.hedge_min_samples = hedge_min_samples
+        self.recoveries_migrated = 0
+        self.recoveries_restored = 0
+        self.hedges_fired = 0
+        self.hedge_wins = 0
+        self._hedges: Dict[object, object] = {}   # task <-> its duplicate
+        self._step_hist: List[float] = []         # step durations so far
+        self._kv_tok_bytes: Optional[float] = None
 
     # ---------------------------------------------------------------- clones
     def _free_clone(self, lo_rank: Optional[int] = None,
@@ -1175,6 +1259,16 @@ class ClientHandler:
 
     def _net_s(self, nbytes: int) -> float:
         return transfer_time(nbytes, self.pool.link)
+
+    def _kv_token_bytes(self) -> float:
+        """KV bytes of one context token (what a migration or a hedge's
+        context transfer moves per token), from the backend's cache
+        accounting; backends without one (test fakes) count 64."""
+        if self._kv_tok_bytes is None:
+            fn = getattr(self.backend, "cache_mem_bytes", None)
+            self._kv_tok_bytes = (float(fn(1)) / self.backend.capacity
+                                  if fn is not None else 64.0)
+        return self._kv_tok_bytes
 
     # ------------------------------------------- disagg / affinity (ADR-009)
     def _disagg_block_bytes(self) -> int:
@@ -1581,7 +1675,9 @@ class ClientHandler:
 
     def _cancel_join(self, engine: _SlotEngine) -> None:
         """Roll back the newest not-yet-submitted join (its prefill never
-        ran, so nothing is lost) and requeue it at the head."""
+        ran, so nothing is lost) and requeue it at the head.  An inbound
+        migration whose copy never ran goes last: the request restores
+        with its generated tokens carried."""
         if engine.sfx_joins:
             slot, req, _, _, _ = engine.sfx_joins.pop()
         elif engine.joins:
@@ -1590,13 +1686,21 @@ class ClientHandler:
             # partner prefill not yet submitted: a free rollback too
             slot, req, _, _ = engine.disagg_joins.pop()
         else:
-            # a handoff whose copy never ran: the request restores with
-            # its first token carried, the partner's slot is dropped
-            slot, req, tok, t0, _, _, pslot = engine.migrations.pop()
-            req.generated = [tok]
-            req.first_token_t = t0
+            slot, req, out, ft, _, _, _, sslot, _, kind = \
+                engine.migrations.pop()
+            req.generated = list(out)
+            req.first_token_t = ft
             req.preemptions += 1
-            engine.prefill_pool.free_slot(pslot)
+            if kind == "recover":
+                # admitted by length: nothing indexed, nothing shared
+                engine.kv.free_slot(slot)
+                self.recoveries_restored += 1
+                self.queue.requeue(req)
+                self.preemptions += 1
+                return
+            # a handoff: the partner's slot holding its blocks is dropped
+            if engine.prefill_pool is not None:
+                engine.prefill_pool.free_slot(sslot)
         engine.disagg_blocks.pop(slot, None)
         engine.cow_pairs = [p for p in engine.cow_pairs if p[0] != slot]
         engine.kv.cancel_slot(slot)
@@ -1709,25 +1813,8 @@ class ClientHandler:
             cow_batch = (backend.copy_fn(), backend.tensor(src),
                          backend.tensor(dst))
             nbytes += 4 * cpad * 2
-        mig_batch = None
-        xfer_s = 0.0
-        if migs:
-            # the handoffs as one copy out of the engine's scratch pool,
-            # block ids padded to a power-of-two bucket with 0 -> 0 pads,
-            # billed per block on ``disagg_link`` (int8 + scales when
-            # compressed)
-            sids = [b for m in migs for b in m[4]]
-            dids = [b for m in migs for b in m[5]]
-            n_blk = len(sids)
-            bpad = pow2_bucket(n_blk)
-            mig_batch = (backend.migrate_fn(self.disagg_compress),
-                         engine.prefill_pool.pool,
-                         backend.tensor(sids + [0] * (bpad - n_blk)),
-                         backend.tensor(dids + [0] * (bpad - n_blk)))
-            dbytes = n_blk * self._disagg_block_bytes()
-            xfer_s = transfer_time(dbytes, LINKS[self.disagg_link])
-            self.kv_transfer_bytes += dbytes
-            self.kv_transfer_s += xfer_s
+        mig_batches, xfer_s, mig_bytes = self._migration_batches(migs)
+        nbytes += mig_bytes
         sfx_batch = None
         mixed_batch = None
         if sfx:
@@ -1760,15 +1847,13 @@ class ClientHandler:
             nbytes += int(stoks.nbytes)
 
         if spec and do_decode:
-            # a speculative engine has no disagg partner: no migrations
             return self._submit_spec_round(engine, counts, rows, join_batch,
-                                           cow_batch, sfx_batch, tables, pos,
-                                           nbytes)
+                                           cow_batch, mig_batches, sfx_batch,
+                                           tables, pos, nbytes)
 
         def step_fn(params, pool, tok, pos, steps_left, tables):
-            if mig_batch is not None:
-                mfn, *mig_args = mig_batch
-                pool = mfn(pool, *mig_args)
+            for mfn, spool, sids, dids in mig_batches:
+                pool = mfn(pool, spool, sids, dids)
             firsts = None
             if join_batch is not None:
                 toks, blks, slots = join_batch
@@ -1802,6 +1887,38 @@ class ClientHandler:
             label="step" if do_decode else "prefill")
         self._charge(engine.clone, task.venue_seconds)
         return task
+
+    def _migration_batches(self, migs: List[tuple]):
+        """Inbound migrations as one cross-pool copy per (source pool,
+        kind), block ids padded to a power-of-two bucket with 0 -> 0 pads.
+        A handoff bills per block on ``disagg_link`` (int8 + scales when
+        compressed); a recovery move bills its tokens' KV bytes on the
+        clone link.  Returns ``(batches, handoff link seconds, recovery
+        bytes)``."""
+        backend = self.backend
+        groups: Dict[tuple, list] = {}
+        for m in migs:
+            groups.setdefault((id(m[4]), m[9]), []).append(m)
+        batches, xfer_s, nbytes = [], 0.0, 0
+        for (_, kind), group in groups.items():
+            sids = [b for m in group for b in m[5]]
+            dids = [b for m in group for b in m[6]]
+            n_blk = len(sids)
+            bpad = pow2_bucket(n_blk)
+            compress = kind == "disagg" and self.disagg_compress
+            batches.append((backend.migrate_fn(compress), group[0][4],
+                            backend.tensor(sids + [0] * (bpad - n_blk)),
+                            backend.tensor(dids + [0] * (bpad - n_blk))))
+            if kind == "disagg":
+                dbytes = n_blk * self._disagg_block_bytes()
+                dt = transfer_time(dbytes, LINKS[self.disagg_link])
+                xfer_s += dt
+                self.kv_transfer_bytes += dbytes
+                self.kv_transfer_s += dt
+            else:
+                nbytes += int(sum(m[8] for m in group)
+                              * self._kv_token_bytes())
+        return batches, xfer_s, nbytes
 
     # ----------------------------------------------------- disagg prefill
     def _submit_disagg_prefill(self, engine: _SlotEngine):
@@ -1856,20 +1973,23 @@ class ClientHandler:
         engine.disagg_inflight = False
         sub, engine.submitted_disagg = engine.submitted_disagg, []
         now = self.clock.now()
-        for (slot, req, _, new_ids, pslot, p_ids), ft in zip(
+        for (slot, req, eff, new_ids, pslot, p_ids), ft in zip(
                 sub, firsts.cpu().numpy()):
             req.first_token_t = now
             req.token_ts = [now]
             engine.migrations.append(
-                (slot, req, int(ft), now, p_ids, new_ids, pslot))
+                (slot, req, [int(ft)], now, engine.prefill_pool.pool, p_ids,
+                 new_ids, pslot, len(eff), "disagg"))
 
     def _pump(self, engine: _SlotEngine, inflight: Dict) -> None:
         """Submit what the engine can run now: its next step unless one
         is in flight and, independently, a partner prefill for pending
         disagg admissions (the two overlap)."""
         if engine.step_work() and not engine.main_inflight:
-            inflight[self._submit_engine_step(engine)] = engine
+            task = self._submit_engine_step(engine)
             engine.main_inflight = True
+            inflight[task] = engine
+            self._maybe_hedge(task, engine, inflight)
         pt = self._submit_disagg_prefill(engine)
         if pt is not None:
             inflight[pt] = engine
@@ -1886,10 +2006,10 @@ class ClientHandler:
         return seq[:int(engine.kv.pos[slot])]
 
     def _submit_spec_round(self, engine: _SlotEngine, counts, rows,
-                           join_batch, cow_batch, sfx_batch, tables, pos,
-                           nbytes):
+                           join_batch, cow_batch, mig_batches, sfx_batch,
+                           tables, pos, nbytes):
         """One speculative round: stash the verify closure (carrying the
-        round's join/CoW/suffix folds), then dispatch the draft
+        round's join/CoW/migration/suffix folds), then dispatch the draft
         on the draft clone; the verify goes out when the draft completes,
         or at once with zero drafts when every row clamped to k = 0."""
         kv = engine.kv
@@ -1907,6 +2027,8 @@ class ClientHandler:
                                 drafts_np.astype(np.int32)], axis=1)
 
             def step_fn(params, pool, toks, pos, n_live, tables):
+                for mfn, spool, sids, dids in mig_batches:
+                    pool = mfn(pool, spool, sids, dids)
                 firsts = None
                 if join_batch is not None:
                     jtoks, blks, slots = join_batch
@@ -2024,18 +2146,26 @@ class ClientHandler:
             engine.dpos[slot] = 0
             kv.active[slot] = True
         engine.submitted_sfx = []
-        for slot, req, tok, t0, _, _, pslot in engine.submitted_migrations:
-            # a handoff landed: the slot resumes with its first token (the
-            # next decode input), the partner's scratch slot retires, and
-            # its blocks leave the pending set below
-            engine.slots[slot] = _Slot(req, [tok], t0,
-                                       token_ts=_carried_ts(req, 1))
-            engine.tok_host[slot] = tok
+        for slot, req, out, ft, _, _, _, sslot, _, kind in \
+                engine.submitted_migrations:
+            # a migrated slot resumes where its source stopped: tokens
+            # already emitted, the last one the next decode input
+            engine.slots[slot] = _Slot(req, list(out), ft,
+                                       token_ts=_carried_ts(req, len(out)))
+            engine.tok_host[slot] = int(out[-1])
             engine.dpos[slot] = 0
             kv.active[slot] = True
-            self.disagg_handoffs += 1
-            engine.disagg_blocks.pop(slot, None)
-            engine.prefill_pool.free_slot(pslot)
+            if kind == "disagg":
+                # the partner's scratch slot retires and the slot's blocks
+                # leave the pending set below
+                self.disagg_handoffs += 1
+                engine.disagg_blocks.pop(slot, None)
+                if engine.prefill_pool is not None:
+                    engine.prefill_pool.free_slot(sslot)
+            else:
+                self.recoveries_migrated += 1
+        # dropping the tuples drops the last reference to a dead clone's
+        # pool, so its device memory is returned
         engine.submitted_migrations = []
         kv.clear_pending()
         # slots still waiting for their handoff keep their prompt blocks
@@ -2110,15 +2240,254 @@ class ClientHandler:
                 self.pool.release([engine.draft_clone])
                 engine.draft_clone = None
 
+    # ------------------------------------------------------- fault recovery
+    def _requeue_lost(self, req: ServeRequest) -> None:
+        """Send a dead engine's request back through admission on the
+        prefix-accelerated restore path (its generated tokens, if any,
+        are already carried on the request)."""
+        req.preemptions += 1
+        self.queue.requeue(req)
+        self.recoveries_restored += 1
+
+    def _try_migrate(self, src_engine: _SlotEngine, slot: int, s: _Slot,
+                     engines: Dict[int, _SlotEngine]) -> bool:
+        """Queue one active slot of a drained engine for migration into a
+        survivor with room: claim the destination slot and blocks now (so
+        later candidates of the same pass see them), fold the device copy
+        into the destination's next step.  False when no survivor can
+        admit the context.
+
+        The source pool is updated in place, so it already holds the
+        writes of the step that was in flight when the clone died (the
+        reference drops that step's pool with its result).  They sit at
+        positions ``pos`` and later of the last copied block, and the
+        survivor's decode writes each of those positions before any step
+        attends to it: the request still has every token from ``pos`` on
+        to emit."""
+        if getattr(self.backend, "migrate_fn", None) is None:
+            return False
+        kv = src_engine.kv
+        pos = int(kv.pos[slot])
+        nb = (pos - 1) // kv.bs + 1
+        src_ids = [int(b) for b in kv.tables[slot, :nb]]
+        cands = sorted((e for e in engines.values()
+                        if e is not src_engine and e.clone.serveable),
+                       key=lambda e: e.clone.cid)
+        for dst in cands:
+            if not dst.kv.can_admit(pos, s.req.max_new_tokens):
+                continue
+            dslot, new_ids, _, _ = dst.kv.alloc_slot(pos)
+            s.req.token_ts = list(s.token_ts)   # stamps survive the move
+            dst.migrations.append(
+                (dslot, s.req, list(s.out), s.first_token_t, kv.pool,
+                 src_ids, [int(b) for b in new_ids], slot, pos, "recover"))
+            return True
+        return False
+
+    def _recover_engine(self, engine: _SlotEngine, fault: CloneFault,
+                        engines: Dict[int, _SlotEngine]) -> None:
+        """Recover every request a dead engine held.  Joins and inbound
+        migrations never folded a token here, so they requeue (carrying
+        any generated tokens).  Active slots hold decode progress: after a
+        ``drain`` their blocks move to a survivor that can admit them;
+        after a ``kill`` (memory lost) they requeue to re-prefill."""
+        for (_, req, _e, _b) in engine.joins + engine.submitted_joins:
+            self._requeue_lost(req)
+        for (_, req, _s, _p, _r) in engine.sfx_joins + engine.submitted_sfx:
+            self._requeue_lost(req)
+        for (_, req, out, ft, *_rest) in (engine.migrations
+                                          + engine.submitted_migrations):
+            req.generated = list(out)
+            req.first_token_t = ft
+            self._requeue_lost(req)
+        # rows parked on the partner never folded a token here either
+        for (_, req, _e, _i) in engine.disagg_joins:
+            self._requeue_lost(req)
+        for (_, req, _e, _i, _ps, _pi) in engine.submitted_disagg:
+            self._requeue_lost(req)
+        engine.joins, engine.sfx_joins, engine.cow_pairs = [], [], []
+        engine.submitted_joins, engine.submitted_sfx = [], []
+        engine.migrations, engine.submitted_migrations = [], []
+        engine.disagg_joins, engine.submitted_disagg = [], []
+        engine.disagg_blocks = {}
+        for slot, s in enumerate(engine.slots):
+            if s is None:
+                continue
+            if not (fault.kind == "drain"
+                    and self._try_migrate(engine, slot, s, engines)):
+                s.req.generated = list(s.out)
+                s.req.first_token_t = s.first_token_t
+                s.req.token_ts = list(s.token_ts)
+                self._requeue_lost(s.req)
+            engine.slots[slot] = None
+        # the pools die with the clone: a revived clone gets fresh ones,
+        # so nothing resets or reuses the tensors that a pending
+        # migration still reads
+        self._kv_pools.pop(engine.clone.cid, None)
+        self._prefill_pools.pop(engine.clone.cid, None)
+
+    def _recover_failed(self, inflight: Dict,
+                        engines: Dict[int, _SlotEngine]) -> None:
+        """Handle every clone the injector killed or drained since the
+        last round: cancel its in-flight dispatches, settle hedge races,
+        recover its engine's requests, and degrade the engines whose draft
+        or prefill partner it was."""
+        for clone, fault in self.injector.drain_failed():
+            draft_orphans = []        # engines whose draft died mid-round
+            disagg_orphans = []       # engines whose partner died mid-prefill
+            for task in [t for t in inflight if t.clone is clone]:
+                unit = inflight.pop(task)
+                self.dispatcher.cancel(task)
+                if task.label == "draft":
+                    # the stashed verify can still run, with zero drafts
+                    draft_orphans.append(unit)
+                    continue
+                if task.label == "disagg_prefill":
+                    disagg_orphans.append(unit)
+                    continue
+                partner = self._hedges.pop(task, None)
+                if partner is not None:
+                    self._hedges.pop(partner, None)
+                    if task.label == "hedge":
+                        continue      # the original keeps racing
+                    # the engine's own step died: its hedge cannot rescue
+                    # an engine that is being recovered
+                    inflight.pop(partner, None)
+                    self.dispatcher.cancel(partner)
+                    self.pool.release([partner.clone])
+            engine = None
+            for key, eng in list(engines.items()):
+                if eng.clone is clone:
+                    engine = engines.pop(key)
+                    self.ledger.drop(key)
+                    break
+            if engine is not None:
+                # a dead verify clone orphans its in-flight draft and
+                # frees its partners
+                for t in [t for t, u in inflight.items() if u is engine]:
+                    inflight.pop(t)
+                    self.dispatcher.cancel(t)
+                if engine.draft_clone is not None:
+                    self.pool.release([engine.draft_clone])
+                    engine.draft_clone = None
+                if engine.prefill_clone is not None:
+                    engine.prefill_clone = None
+                    engine.disagg_on = False
+                    self._release_partner()
+                self._recover_engine(engine, fault, engines)
+            self.pool.release([clone])
+            # a dead draft degrades its engines to plain decode: the
+            # interrupted round completes as a zero-draft verify (one
+            # plain greedy token per row, the round's folds kept)
+            for eng in engines.values():
+                if eng.draft_clone is clone:
+                    eng.draft_clone = None
+                    eng.spec_on = False
+                    self.spec_fallbacks += 1
+            for eng in draft_orphans:
+                if id(eng) in engines and eng._verify_builder is not None:
+                    vt = self._submit_spec_verify(
+                        eng,
+                        np.zeros((eng.kv.max_slots, max(eng.spec_k, 1)),
+                                 np.int32),
+                        np.zeros((eng.kv.max_slots,), np.int32))
+                    inflight[vt] = eng
+            # a dead partner degrades its engines to co-located prefill:
+            # rows riding the dead prefill requeue (no token emitted yet),
+            # rows still pending become plain joins on the decode clone
+            for eng in disagg_orphans:
+                if id(eng) not in engines:
+                    continue            # the decode engine died too
+                eng.disagg_inflight = False
+                sub, eng.submitted_disagg = eng.submitted_disagg, []
+                for (slot, req, _e, _i, _ps, _pi) in sub:
+                    eng.disagg_blocks.pop(slot, None)
+                    eng.kv.cancel_slot(slot)
+                    self._requeue_lost(req)
+            for eng in engines.values():
+                if eng.prefill_clone is not clone:
+                    continue
+                eng.prefill_clone = None
+                eng.prefill_pool = None
+                eng.disagg_on = False
+                self.disagg_fallbacks += 1
+                self._prefill_pools.pop(eng.clone.cid, None)
+                rows, eng.disagg_joins = eng.disagg_joins, []
+                for (slot, req, eff, ids) in rows:
+                    eng.disagg_blocks.pop(slot, None)
+                    eng.joins.append((slot, req, eff,
+                                      np.asarray(ids, np.int32)))
+                self._pump(eng, inflight)
+            if self._partner_clone is clone:
+                # every engine's reference died with the partner
+                self._partner_clone = None
+                self._partner_refs = 0
+
+    # ---------------------------------------------------------------- hedge
+    def _maybe_hedge(self, task, engine: _SlotEngine,
+                     inflight: Dict) -> None:
+        """Race a straggling step on a second clone: a step whose timeline
+        duration exceeds ``hedge_factor`` times the ``hedge_quantile`` of
+        the earlier steps re-issues its closure on a free clone, which
+        first pays the engine's live KV context over the link.  The first
+        copy to complete is folded; the other's completion is cancelled.
+
+        The duplicate runs the same closure on the engine's own pool, in
+        place, right after the first run: the closures are idempotent
+        (their writes depend only on their inputs, attention writes
+        before it reads), so the pool and the tokens are those of one
+        run."""
+        if self.hedge_factor <= 0 or task.label != "step":
+            return
+        hist = self._step_hist
+        fire = (len(hist) >= self.hedge_min_samples
+                and task.duration > self.hedge_factor
+                * float(np.quantile(hist, self.hedge_quantile)))
+        hist.append(task.duration)    # after the decision: never vs itself
+        if not fire:
+            return
+        clone = self._free_clone()
+        if clone is None or clone is engine.clone:
+            return
+        kv = engine.kv
+        ctx_tokens = int(kv.pos[kv.active].sum())
+        delay = (self.autoscaler.clone_ready_delay(clone, self.clock.now())
+                 + self._net_s(int(ctx_tokens * self._kv_token_bytes())))
+        clone.busy = True
+        dup = self.dispatcher.submit(clone, task.fn, task.fn_args,
+                                     executor=self.executor,
+                                     extra_delay=delay, label="hedge")
+        self._charge(clone, dup.venue_seconds)
+        self.hedges_fired += 1
+        self._hedges[task] = dup
+        self._hedges[dup] = task
+        inflight[dup] = engine
+
+    def _resolve_hedge(self, winner, inflight: Dict) -> None:
+        """The first of a hedge pair completed: cancel the other, return
+        the borrowed clone, count a win when the duplicate was first."""
+        partner = self._hedges.pop(winner, None)
+        if partner is None:
+            return
+        self._hedges.pop(partner, None)
+        inflight.pop(partner, None)
+        self.dispatcher.cancel(partner)
+        hedge = winner if winner.label == "hedge" else partner
+        self.pool.release([hedge.clone])
+        if winner is hedge:
+            self.hedge_wins += 1
+
     # ------------------------------------------------------------------ run
     def run(self, requests: List[ServeRequest], *,
             drain_idle_s: float = 0.0) -> ServeReport:
         """Serve ``requests`` on the virtual timeline; returns a report.
 
-        Each round: admit due arrivals into the bounded queue; offer
-        queued requests to partially-full in-flight engines first
-        (mid-flight joins); autoscale on the residual demand; start new
-        engines on free clones; advance to the next completion or arrival.
+        Each round: admit due arrivals into the bounded queue (through
+        the gateway when there is one); recover clones that died since the
+        last round; offer queued requests to partially-full in-flight
+        engines first (mid-flight joins); autoscale on the residual
+        demand; start new engines on free clones; advance to the next
+        completion, arrival, fault or gateway event.
         """
         reqs = sorted(requests, key=lambda r: r.arrival_t)
         t_start = self.clock.now()
@@ -2127,12 +2496,37 @@ class ClientHandler:
         inflight: Dict[object, object] = {}     # task -> engine or cohort
         engines: Dict[int, _SlotEngine] = {}
         completions: List[ServeCompletion] = []
+        notified = 0                    # completions fed back to the gateway
+        gw = self.gateway
+        if self.injector is not None:
+            self.injector.arm()
         while True:
             now = self.clock.now()
             self._band_cache.clear()
             while i < len(reqs) and reqs[i].arrival_t <= now + 1e-12:
-                self.queue.offer(reqs[i], now)
+                if gw is not None:
+                    gw.offer(reqs[i], now)
+                else:
+                    self.queue.offer(reqs[i], now)
                 i += 1
+            if self.injector is not None:
+                # before joins and spawns consult the engine set
+                self._recover_failed(inflight, engines)
+            if gw is not None:
+                # fleet census after recovery: dead and open-breaker
+                # clones shrink the gateway's admission envelope
+                healthy = sum(1 for c in self.pool.clones if c.serveable)
+                gw.observe_fleet(healthy, len(self.pool.clones),
+                                 self.max_batch * max(healthy, 1))
+                while notified < len(completions):
+                    gw.observe_completion(completions[notified])
+                    notified += 1
+                gw.release(now, self.queue,
+                           self.queue.max_depth - self.queue.depth)
+                completions.extend(gw.drain_cached())
+            self._peak_queue_depth = max(
+                self._peak_queue_depth,
+                self.queue.depth + (gw.queued if gw is not None else 0))
             if paged and engines:
                 for key, eng in engines.items():
                     self.ledger.update(key, eng.kv.free_slots)
@@ -2214,16 +2608,24 @@ class ClientHandler:
                 self._band_cache.clear()
 
             if inflight:
+                # bound the wait so arrivals are admitted on time and a
+                # clone death is seen when it fires, not when the doomed
+                # dispatch would have completed
                 next_arrival = reqs[i].arrival_t if i < len(reqs) else None
+                next_fault = (self.injector.next_event_time()
+                              if self.injector is not None else None)
+                next_gw = gw.next_event_time() if gw is not None else None
+                bound = min((t for t in (next_arrival, next_fault, next_gw)
+                             if t is not None and t > now), default=None)
                 first_done = min(t.done_at for t in inflight)
-                if next_arrival is not None and now < next_arrival \
-                        < first_done:
-                    self.clock.advance_to(next_arrival)
+                if bound is not None and bound < first_done:
+                    self.clock.advance_to(bound)
                     continue
                 for task in self.dispatcher.wait_any(list(inflight)):
                     unit = inflight.pop(task, None)
                     if unit is None:
-                        continue
+                        continue          # a hedge loser already resolved
+                    self._resolve_hedge(task, inflight)
                     if not paged:
                         cohort = unit
                         tok, cohort.cache = task.value
@@ -2237,7 +2639,9 @@ class ClientHandler:
                         continue
                     if task.label == "draft":
                         # half a round: chain the verify on the target
-                        inflight[self._spec_draft_done(unit, task)] = unit
+                        vt = self._spec_draft_done(unit, task)
+                        inflight[vt] = unit
+                        self._maybe_hedge(vt, unit, inflight)
                         continue
                     if task.label == "disagg_prefill":
                         # the handoff rides the engine's next step (pumped
@@ -2255,8 +2659,26 @@ class ClientHandler:
             elif i < len(reqs):
                 self.clock.advance_to(reqs[i].arrival_t)
             elif self.queue.depth > 0:
+                # every clone may be dead or tripped with revivals and
+                # breaker probes pending: advance to the next clock event
+                nxt = (self.clock.next_event_time()
+                       if self.injector is not None else None)
+                if nxt is not None and nxt > now + 1e-12:
+                    self.clock.advance_to(nxt)
+                    continue
                 raise RuntimeError("requests queued but no clone can run "
                                    "(max_secondaries too small?)")
+            elif gw is not None and gw.pending > 0:
+                # the gateway still owes work (a quota-blocked head or a
+                # Retry-After replay): advance to what releases it
+                nxt = gw.next_event_time()
+                if nxt is None:
+                    nxt = self.clock.next_event_time()
+                if nxt is not None and nxt > now + 1e-12:
+                    self.clock.advance_to(nxt)
+                    continue
+                raise RuntimeError("gateway holds queued work but no clock "
+                                   "event can release it")
             else:
                 break
 
@@ -2274,6 +2696,27 @@ class ClientHandler:
             if completions else np.zeros(1)
         makespan = self.clock.now() - t_start - drain_idle_s
         utils = [w / r for w, r in self.kv_samples if r > 0]
+        # SLO accounting over *offered* requests: rejected, shed or
+        # dropped work counts as missed
+        offered_by_slo: Dict[str, int] = {}
+        for r in reqs:
+            offered_by_slo[r.slo] = offered_by_slo.get(r.slo, 0) + 1
+        met_by_slo: Dict[str, int] = {}
+        for c in completions:
+            if c.met_deadline:
+                met_by_slo[c.slo] = met_by_slo.get(c.slo, 0) + 1
+        by_tenant: Dict[str, List[ServeCompletion]] = {}
+        for c in completions:
+            by_tenant.setdefault(c.tenant or "", []).append(c)
+        per_tenant = {
+            t: {"served": float(len(cs)),
+                "p50_ttft_s": float(np.percentile([c.ttft_s for c in cs],
+                                                  50)),
+                "p50_tpot_s": float(np.percentile([c.tpot_s for c in cs],
+                                                  50))}
+            for t, cs in sorted(by_tenant.items())}
+        good_tokens = sum(len(c.tokens) for c in completions
+                          if c.met_deadline)
         return ServeReport(
             completions=completions,
             accepted=self.queue.accepted,
@@ -2312,7 +2755,24 @@ class ClientHandler:
             disagg_colocated=self.disagg_colocated,
             disagg_fallbacks=self.disagg_fallbacks,
             kv_transfer_bytes=self.kv_transfer_bytes,
-            kv_transfer_s=self.kv_transfer_s)
+            kv_transfer_s=self.kv_transfer_s,
+            faults_injected=(self.injector.stats["injected"]
+                             if self.injector is not None else 0),
+            recoveries_migrated=self.recoveries_migrated,
+            recoveries_restored=self.recoveries_restored,
+            hedges_fired=self.hedges_fired,
+            hedge_wins=self.hedge_wins,
+            breaker_opens=sum(c.breaker.opens for c in self.pool.clones),
+            slo_attainment={s: met_by_slo.get(s, 0) / n
+                            for s, n in offered_by_slo.items() if n},
+            goodput_tps=good_tokens / max(makespan, 1e-9),
+            gateway_shed=gw.shed if gw is not None else 0,
+            gateway_rejected=gw.rejected if gw is not None else 0,
+            gateway_retries=gw.retries if gw is not None else 0,
+            cache_hits=gw.cache_hits if gw is not None else 0,
+            shed_by_slo=dict(gw.shed_by_slo) if gw is not None else {},
+            per_tenant=per_tenant,
+            peak_queue_depth=self._peak_queue_depth)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -17,6 +17,8 @@ from repro.core.scheduler import ServeRequest as JRequest
 from repro.launch import serve as jserve
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced_config as t_reduced_config
+from repro_torch.core.faults import CloneFault
+from repro_torch.core.gateway import StreamingGateway
 from repro_torch.core.scheduler import ServeRequest
 from repro_torch.launch import serve as tserve
 from repro_torch.models import weights
@@ -168,17 +170,27 @@ def _pool_leaves(pool):
             for k in ("k", "v")]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(hedge_factor=2.0), "faults/hedging"),
-    (dict(faults=[object()]), "faults/hedging"),
-    (dict(gateway=object()), "faults/hedging/gateway"),
+@pytest.mark.parametrize("kw", [
+    dict(hedge_factor=2.0),
+    dict(faults=[CloneFault(at=1.0)]),
+    dict(faults=[CloneFault(at=1.0)], hedge_factor=2.0,
+         gateway=StreamingGateway()),
 ])
-def test_unported_handler_options_raise(kw, match):
+def test_faults_and_hedging_require_paged_kv(kw):
+    """The reference's ``test_faults_require_paged_kv`` on the LM backend:
+    the cohort mode keeps no per-slot restore state, so faults and hedges
+    raise there; the paged mode takes them, and the gateway, as the
+    reference does."""
     b = _backends()
     backend = tserve.LMBackend(b["tcfg"], capacity=CAP, params=b["tp"],
                                device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tserve.ClientHandler(backend, executor=_fixed, **kw)
+    with pytest.raises(ValueError, match="kv='paged'"):
+        tserve.ClientHandler(backend, executor=_fixed, kv="contiguous",
+                             **kw)
+    h = tserve.ClientHandler(backend, executor=_fixed, **kw)
+    assert (h.injector is not None) == ("faults" in kw)
+    assert h.hedge_factor == kw.get("hedge_factor", 0.0)
+    assert h.gateway is kw.get("gateway")
 
 
 def test_handler_validation_errors():
