@@ -128,7 +128,26 @@ the kernel path against the plain path.  Phases:
               gateway's cache; prints slo_attainment and goodput_tps;
 17. parity  — the drain, kill and hedged runs in float32 with impl="cuda"
               held to the faultless impl="torch" streams under phase 5's
-              near-tie rule.
+              near-tie rule;
+18. offload — smollm-360m in bfloat16 through the batch ``ServingEngine``
+              (the ExecutionController on the card; capacity 256): 8
+              requests of 12-96 prompt tokens, 16 new tokens each, served
+              forced local, forced remote, remote over 2 clones (split
+              prefill) and unforced under Policy.EXEC_TIME.  Every request
+              finishes its budget, every prefill call launches
+              flash_attention once per layer, every Venue timing is
+              positive and synchronised on the card, and ``offloaded``
+              counts the prefill and every decode step; then one engine
+              at capacity 512, whose bf16 cache (about 168 MB) is past the
+              clone types' 100 MiB heap, escalates 4 times (main ->
+              x8large).  Then a ``@remote`` workload on the card under a
+              controller on wifi-local, 3g and nvlink: local and remote
+              virtual-clock time and energy, and the boundary input value
+              of each link (3G's at least WiFi's);
+19. parity  — phase 18's four placements in float32 with impl="cuda" held
+              to impl="torch" on the same weights, and every placement
+              held to the local one, under phase 5's near-tie rule (the
+              float32 cache at capacity 256 also escalates 4 times).
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -185,7 +204,12 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 17
+PHASES = 19
+# phase 18: the ServingEngine placements and the escalation engine's
+# capacity (its bf16 cache is past the clone types' 100 MiB heap)
+PLACEMENTS = {"local": dict(force="local"), "remote": dict(force="remote"),
+              "split": dict(force="remote", n_clones=2), "policy": {}}
+ESCALATE_CAPACITY = 512
 
 
 def fail(msg):
@@ -1708,6 +1732,229 @@ def chaos_parity(torch, cfg):
     del params
 
 
+# --------------------------------------------------------------------------- #
+# phases 18-19: the offload path (ExecutionController + ServingEngine)
+# --------------------------------------------------------------------------- #
+def offload_trace(vocab):
+    """8 requests of 12-96 prompt tokens (both ends included), 16 new
+    tokens each: one ``ServingEngine`` batch (prompts right-padded to 96)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(14)
+    lens = [12, PROMPT_PAD] + [int(x) for x in
+                               rng.integers(13, PROMPT_PAD, 6)]
+    return [Request(i, rng.integers(0, vocab, n, dtype=np.int32), NEW_TOKENS)
+            for i, n in enumerate(lens)]
+
+
+def engine_serve(torch, backend, placement, capacity=CAPACITY):
+    """One batch of ``offload_trace`` through a fresh ``ServingEngine`` on
+    ``backend`` at ``placement``.  Fails unless every request finishes its
+    budget, every prefill call (each shard, each Venue re-run) launched
+    flash_attention once per attention layer and nothing else launched
+    it, every ExecutionResult time is positive and every Venue timing
+    synchronised ``backend``'s device.  Returns (streams, engine, wall
+    seconds, flash launches per prefill call, results)."""
+    from repro_torch.core import venues
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingEngine
+    eng = ServingEngine(backend.cfg, capacity=capacity, backend=backend)
+    prefill, execute, sync = eng.rm_prefill.fn, eng.ec.execute, venues._sync
+    per_call, results, syncs = [], [], []
+
+    def counted_prefill(params, tokens):
+        before = ops.launches["flash_attention"]
+        out = prefill(params, tokens)
+        per_call.append(ops.launches["flash_attention"] - before)
+        return out
+
+    def recorded(rm, *args, **kw):
+        res = execute(rm, *args, **kw)
+        results.append((rm.name, res))
+        return res
+
+    def counted_sync(device):
+        syncs.append(device.type)
+        sync(device)
+
+    eng.rm_prefill.fn, eng.ec.execute = counted_prefill, recorded
+    venues._sync = counted_sync
+    reqs = offload_trace(backend.cfg.vocab_size)
+    try:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = eng.serve_batch(reqs, **PLACEMENTS[placement])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        venues._sync = sync
+    got = dict(ops.launches)
+    toks = {c.rid: c.tokens for c in comps}
+    if sorted(toks) != list(range(len(reqs))) or any(
+            len(t) != NEW_TOKENS or not all(0 <= x < backend.cfg.vocab_size
+                                            for x in t)
+            for t in toks.values()):
+        fail(f"offload ({placement}): streams {toks}")
+    n_attn = backend.cfg.layer_kinds().count("attn")
+    k = PLACEMENTS[placement].get("n_clones", 1)
+    if backend.ctx.impl == "cuda" and (
+            len(per_call) < k or set(per_call) != {n_attn}
+            or got["flash_attention"] != sum(per_call)):
+        fail(f"offload ({placement}): flash launches per prefill call "
+             f"{per_call}, {got['flash_attention']} in all (want {n_attn} "
+             f"in each of at least {k} calls)")
+    if any(r.time_s <= 0 for _, r in results):
+        fail(f"offload ({placement}): non-positive venue time")
+    if not syncs or set(syncs) != {backend.device.type}:
+        fail(f"offload ({placement}): Venue synchronised {set(syncs)}")
+    return toks, eng, wall, per_call, results
+
+
+def offload_serving(torch, cfg):
+    """Phase 18: smollm-360m at full width in bf16 through the batch
+    ``ServingEngine`` in four placements (see ``PLACEMENTS``), then the
+    capacity-512 engine that must escalate 4 times.  Returns the flash
+    launches of all its serves and the streams per placement."""
+    import numpy as np
+    from repro_torch.launch.serve import LMBackend
+    backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
+    log(f"  controller device {backend.device}; bf16 cache "
+        f"{backend.cache_mem_bytes(MAX_BATCH) / 1e6:.1f} MB at capacity "
+        f"{CAPACITY}")
+    streams, flash = {}, 0
+    for placement in PLACEMENTS:
+        toks, eng, wall, per_call, results = engine_serve(torch, backend,
+                                                          placement)
+        flash += sum(per_call)
+        streams[placement] = toks
+        pre = [r for name, r in results if name == "serve_prefill"][0]
+        dec = [r for name, r in results if name == "serve_decode"]
+        log(f"  {placement}: wall {wall:.4f} s for "
+            f"{MAX_BATCH * NEW_TOKENS} tokens; prefill on {pre.venue} "
+            f"{pre.time_s:.4f} s (virtual; overhead {pre.overhead_s:.4f} s, "
+            f"energy {pre.energy_j:.4f} J), decode on "
+            f"{sorted({r.venue for r in dec})} median "
+            f"{float(np.median([r.time_s for r in dec])):.4f} s (virtual); "
+            f"stats {eng.stats}; decisions {eng.ec.decisions}; flash "
+            f"launches per prefill call {per_call}")
+        want_off = {"local": 0, "remote": 1 + NEW_TOKENS,
+                    "split": 1 + NEW_TOKENS}.get(placement)
+        if want_off is not None and eng.stats["offloaded"] != want_off:
+            fail(f"offload ({placement}): offloaded {eng.stats['offloaded']}"
+                 f", want {want_off}")
+        if eng.stats["escalations"] != 0:
+            fail(f"offload ({placement}): escalated at capacity {CAPACITY}")
+        if placement == "policy" and pre.venue == "phone":
+            fail("offload (policy): first encounter stayed local over "
+                 "wifi-local")
+    for placement in list(PLACEMENTS)[1:]:
+        same = sum(streams[placement][r] == streams["local"][r]
+                   for r in streams["local"])
+        log(f"  {placement}: {same}/{MAX_BATCH} bf16 streams bitwise equal "
+            f"to local")
+    big = LMBackend(cfg, capacity=ESCALATE_CAPACITY, params=backend.params,
+                    device="cuda")
+    toks, eng, wall, per_call, results = engine_serve(
+        torch, big, "remote", capacity=ESCALATE_CAPACITY)
+    flash += sum(per_call)
+    pre = [r for name, r in results if name == "serve_prefill"][0]
+    log(f"  capacity {ESCALATE_CAPACITY}: bf16 cache "
+        f"{big.cache_mem_bytes(MAX_BATCH) / 1e6:.1f} MB; prefill on "
+        f"{pre.venue} after {pre.escalations} escalations, "
+        f"{pre.time_s:.4f} s (virtual); stats {eng.stats}; wall "
+        f"{wall:.4f} s")
+    if eng.stats["escalations"] != 4 or pre.venue != "x8large":
+        fail(f"offload: capacity {ESCALATE_CAPACITY} escalated "
+             f"{eng.stats['escalations']} times to {pre.venue} (want 4 to "
+             "x8large)")
+    del big, backend
+    remote_workload(torch)
+    return flash
+
+
+def remote_workload(torch):
+    """Phase 18, second part: a ``@remote`` workload (n x 50 steps of a
+    64 x 64 float32 matmul and tanh on the card) under a controller on
+    wifi-local, 3g and nvlink: local and remote virtual-clock time and
+    energy, and the boundary input value (the least n that offloading
+    makes faster); 3G's must be at least WiFi's."""
+    from repro_torch.core import (ExecutionController, Policy, remote,
+                                  set_default_controller)
+
+    @remote(size=lambda n: n, name="smoke_heavy")
+    def heavy(n):
+        x = torch.full((64, 64), 1.0 / n, device="cuda")
+        acc = x
+        for i in range(n * 50):
+            acc = torch.tanh(acc @ x + i)
+        return acc.sum()
+
+    rm = heavy.remoteable
+    bivs = {}
+    for link in ("wifi-local", "3g", "nvlink"):
+        ec = ExecutionController(policy=Policy.EXEC_TIME, link=link)
+        set_default_controller(ec)
+        try:
+            value = float(heavy(4))         # routed through the controller
+        finally:
+            set_default_controller(None)
+        bivs[link] = None
+        for n in (1, 2, 4, 8, 16, 32, 64):
+            loc = ec.execute(rm, n, force="local")
+            rem = ec.execute(rm, n, force="remote")
+            log(f"  @remote {link} n={n}: local {loc.time_s:.6g} s "
+                f"{loc.energy_j:.6g} J, remote on {rem.venue} "
+                f"{rem.time_s:.6g} s {rem.energy_j:.6g} J (virtual)")
+            if rem.time_s < loc.time_s:
+                bivs[link] = n
+                break
+        log(f"  @remote {link}: boundary input value {bivs[link]}; "
+            f"transparent call value {value:.6g}, decisions {ec.decisions}")
+    if bivs["wifi-local"] is None or bivs["3g"] is None \
+            or bivs["3g"] < bivs["wifi-local"]:
+        fail(f"@remote: boundary input values {bivs}")
+
+
+def offload_parity(torch, cfg):
+    """Phase 19: phase 18's placements in float32 (random weights from
+    seed 0) with impl="cuda" held to impl="torch", and every placement
+    held to the local one, under phase 5's near-tie rule.  Returns the
+    impl="cuda" flash launches."""
+    from repro_torch.launch.serve import LMBackend
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    backends = {impl: LMBackend(cfg32, capacity=CAPACITY, params=params,
+                                device="cuda", impl=impl)
+                for impl in ("cuda", "torch")}
+    streams, flash = {}, 0
+    for impl, backend in backends.items():
+        for placement in PLACEMENTS:
+            toks, eng, wall, per_call, results = engine_serve(
+                torch, backend, placement)
+            streams[impl, placement] = toks
+            if impl == "cuda":
+                flash += sum(per_call)
+            pre = [r for name, r in results if name == "serve_prefill"][0]
+            log(f"  impl={impl} {placement}: wall {wall:.4f} s, prefill on "
+                f"{pre.venue} ({pre.escalations} escalations), stats "
+                f"{eng.stats}")
+    reqs = offload_trace(cfg.vocab_size)
+    plain = backends["torch"]
+    for placement in PLACEMENTS:
+        log(f"  {placement}: impl=cuda vs impl=torch")
+        hold_to_plain(torch, plain, reqs, streams["cuda", placement],
+                      streams["torch", placement], PROMPT_PAD)
+        if placement != "local":
+            log(f"  {placement}: impl=cuda vs impl=cuda local")
+            hold_to_plain(torch, plain, reqs, streams["cuda", placement],
+                          streams["cuda", "local"], PROMPT_PAD)
+    del backends, params
+    return flash
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -1885,10 +2132,25 @@ def main():
     log(f"[17/{PHASES} chaos parity] smollm-360m float32, drain / kill / "
         "hedge impl=cuda vs faultless impl=torch, same weights")
     chaos_parity(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[18/{PHASES} offload] smollm-360m full width, bfloat16, "
+        "ServingEngine (local, remote, 2 clones, EXEC_TIME policy; "
+        f"capacity {ESCALATE_CAPACITY} escalation), then @remote")
+    offload_flash = offload_serving(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[19/{PHASES} offload parity] smollm-360m float32, ServingEngine "
+        "placements impl=cuda vs impl=torch, same weights")
+    offload_parity_flash = offload_parity(torch, cfg)
+    log(f"  flash launches: phase 18 {offload_flash}, phase 19 (impl=cuda) "
+        f"{offload_parity_flash}")
 
     # launches per serving path, each counted from 0 over its own run
     # (spec: both drafts' runs; disagg: both handoff runs; chaos: the five
-    # fault runs and the gated run)
+    # fault runs and the gated run; offload: phase 18's five serves)
     by_path = {
         name: {"smollm": launches[name], "qwen": qwen_launches[name],
                "spec": sum(r[name] for r in spec_launches.values()),
@@ -1897,6 +2159,7 @@ def main():
         for name in ("paged_decode", "paged_prefill", "flash_attention")}
     by_path["flash_attention"]["recurrentgemma"] = \
         rg_launches["flash_attention"]
+    by_path["flash_attention"]["offload"] = offload_flash
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]

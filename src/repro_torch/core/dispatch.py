@@ -9,13 +9,16 @@ submissions genuinely overlap on the timeline: waiting for all of them
 advances virtual time to ``max(done_at)``, not the sum.
 
 Simulation honesty (DESIGN.md §2) is preserved: the callable runs eagerly
-on the host to obtain its *value* and its measured-then-scaled venue
-seconds; only the *latency* is played out on the virtual timeline.
+on the dispatcher's device to obtain its *value* and its measured-then-
+scaled venue seconds; only the *latency* is played out on the virtual
+timeline.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
+
+import torch
 
 from repro_torch.core.clock import VirtualClock
 from repro_torch.core.clones import Clone, ClonePool
@@ -61,14 +64,20 @@ class CloneTask:
 
 
 class Dispatcher:
-    """Issues work onto clones; completions are virtual-clock events."""
+    """Issues work onto clones; completions are virtual-clock events.
 
-    def __init__(self, pool: ClonePool, clock: VirtualClock):
+    ``device`` is where the default executor runs and times the work: the
+    pool owner's device (the controller's, the backend's), or the card
+    when None (``Venue`` raises where there is none)."""
+
+    def __init__(self, pool: ClonePool, clock: VirtualClock,
+                 device: Optional[Union[str, torch.device]] = None):
         if not getattr(clock, "virtual", False):
             raise TypeError("Dispatcher needs a VirtualClock — overlap is "
                             "only well-defined on a simulated timeline")
         self.pool = pool
         self.clock = clock
+        self.device = device
         self.submitted = 0
 
     # ----------------------------------------------------------------- api
@@ -78,15 +87,18 @@ class Dispatcher:
         """Run ``fn(*args)`` on ``clone``; returns immediately.
 
         ``executor(clone, fn, args) -> (value, venue_seconds)`` defaults to
-        host execution scaled to the clone's venue (``Venue.execute``).
+        execution on the dispatcher's device, timed after a device
+        synchronise and scaled to the clone's venue (``Venue.execute``).
         ``extra_delay`` charges provisioning/transfer seconds that must
         elapse on the timeline before execution starts.
         """
         if executor is None:
             from repro_torch.core.venues import Venue
 
+            device = self.device
+
             def executor(c, f, a):
-                return Venue(c.spec).execute(f, *a)
+                return Venue(c.spec, device).execute(f, *a)
 
         value, venue_s = executor(clone, fn, args)
         # fault-injected slowdowns (ADR-006) scale the modeled venue time

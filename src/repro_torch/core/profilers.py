@@ -42,8 +42,8 @@ class DeviceProfiler:
         """Coarse env signal used for first-encounter decisions (§4.3)."""
         if self.status.connectivity == "none":
             return "none"
-        if self.status.conn_subtype in ("wifi-local", "wifi-internet", "ici",
-                                        "dcn"):
+        if self.status.conn_subtype in ("wifi-local", "wifi-internet",
+                                        "nvlink"):
             return "good"
         return "poor"
 

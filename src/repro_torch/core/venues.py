@@ -1,9 +1,11 @@
-"""Execution venues: cloud VMs (the paper's Table 1) and GPU sub-meshes.
+"""Execution venues: the "phone" (local), cloud VMs (the paper's Table 1)
+and GPU sub-meshes.
 
 A venue is somewhere a remoteable method can run.  Every venue *executes*
-on the backend's device; venue-relative time is one real measurement on
-that device scaled by the venue's effective-throughput ratio (measured =
-wall clock after a device synchronise; modeled = scaled).
+on one device (the card unless the caller names another); venue-relative
+time is one real measurement on that device scaled by the venue's
+effective-throughput ratio (measured = wall clock after a device
+synchronise; modeled = scaled).
 """
 from __future__ import annotations
 
@@ -11,10 +13,12 @@ import dataclasses
 import functools
 import math
 import time
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.models.context import resolve_device
 
 # ---- hardware constants (NVIDIA H100 SXM, per card: the hopper-kernels
 # guide's table, from NVIDIA's data sheet) -----------------------------------
@@ -78,10 +82,21 @@ def _eff_flops(device: str) -> float:
     return 2 * n ** 3 * reps / dt
 
 
-def host_eff_flops(device: Union[str, torch.device] = "cpu") -> float:
-    """Sustained float32 matmul throughput of ``device`` (measured once per
-    device and cached)."""
-    return _eff_flops(str(torch.device(device)))
+def host_eff_flops(device: Optional[Union[str, torch.device]] = None
+                   ) -> float:
+    """Sustained float32 matmul throughput of ``device`` (the card unless
+    another is named; measured once per device and cached)."""
+    return _eff_flops(str(resolve_device(device)))
+
+
+# ---- venue catalogue --------------------------------------------------------
+# "phone": a 2011-era handset (the paper's HTC Dream); its energy comes from
+# the PowerTutor model, not from the venue's power figures.
+def make_phone() -> VenueSpec:
+    return VenueSpec("phone", chips=1, eff_flops=0.05e9,
+                     mem_bytes=16 * 2 ** 20,       # 16 MB Dalvik heap cap
+                     power_idle=0.0, power_peak=0.0,
+                     link=LINKS["wifi-local"])
 
 
 def make_cloud_vm(name: str, cpus: int, mem_mb: int, heap_mb: int,
@@ -106,15 +121,17 @@ def make_gpu_venue(name: str, chips: int, link: LinkProfile,
 
 
 class Venue:
-    """A live venue: executes callables on ``device`` and reports
-    venue-time.  ``execute`` returns (result, venue_seconds), venue_seconds
-    = measured wall clock (after a device synchronise) x (device throughput
-    / venue throughput)."""
+    """A live venue: executes callables on ``device`` (the card unless
+    another is named; raises where there is none) and reports venue-time.
+    ``execute`` returns (result, venue_seconds), venue_seconds = measured
+    wall clock (after a device synchronise) x (device throughput / venue
+    throughput)."""
 
     def __init__(self, spec: VenueSpec,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Optional[Union[str, torch.device]] = None):
         self.spec = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.healthy = True
 
     def speed_ratio(self) -> float:
         return host_eff_flops(self.device) / self.spec.eff_flops
@@ -140,6 +157,12 @@ class Venue:
             _sync(self.device)
             host_dt = min(host_dt, time.perf_counter() - t1)
         return out, host_dt * self.speed_ratio()
+
+    def estimate_time(self, flops: float) -> float:
+        return flops / self.spec.eff_flops
+
+    def fits(self, workset_bytes: int) -> bool:
+        return workset_bytes <= self.spec.mem_bytes
 
 
 def transfer_time(nbytes: int, link: LinkProfile) -> float:

@@ -2,7 +2,17 @@
 
 ``LMBackend`` binds a model (parameters on one device, a ``RunContext``
 selecting the hand-written CUDA kernels or the plain path) and hands the
-serving layer its paged step functions.  ``ClientHandler`` is the
+serving layer its step functions.
+
+``ServingEngine`` is the batch-at-a-time offload path: each batch's
+prefill and every decode step is a remoteable method run through an
+:class:`~repro_torch.core.controller.ExecutionController` on the backend's
+device, which places it on the phone venue or a cloud clone from profiled
+history; a batch whose KV working set exceeds the clone's memory escalates
+to a bigger clone type (the paper's OutOfMemoryError path), and prefill can
+be split over k clones (the paper's parallelization path).
+
+``ClientHandler`` is the
 event-driven continuous-batching server: requests arrive on a shared
 :class:`~repro_torch.core.clock.VirtualClock`, pass admission control, and
 are admitted into the slots of a per-clone :class:`_SlotEngine` over a
@@ -41,8 +51,6 @@ survivor's next step) and restores a killed one's by re-prefilling them, and
 ``hedge_factor`` races a straggling step on a second clone.  A
 :class:`~repro_torch.core.gateway.StreamingGateway` in front of the queue
 applies tenant quotas, fair share, shedding and a response cache (ADR-007).
-The legacy ``ServingEngine`` raises ``NotImplementedError`` naming its
-ROADMAP item.
 
 KV caches are updated in place, recurrent state is replaced.  Every step
 closure is idempotent (each write is a function of the step's inputs,
@@ -58,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -68,11 +77,13 @@ from repro_torch.core.clock import VirtualClock
 from repro_torch.core.clones import (CLONE_TYPES, KV_SCALE_BY_CLONE_TYPE,
                                      PAUSE_IDLE_TTL, CircuitBreaker,
                                      ClonePool)
+from repro_torch.core.controller import ExecutionController
 from repro_torch.core.dispatch import Dispatcher
 from repro_torch.core.energy import GpuEnergyModel
 from repro_torch.core.faults import CloneFault, FaultInjector
 from repro_torch.core.gateway import StreamingGateway
 from repro_torch.core.policy import Policy
+from repro_torch.core.remoteable import RemoteableMethod
 from repro_torch.core.scheduler import (AdmissionQueue, FleetAutoscaler,
                                         PlacementEngine, ServeCompletion,
                                         ServeRequest, SlotLedger,
@@ -92,6 +103,23 @@ def pow2_bucket(n: int) -> int:
     if n < 1:
         raise ValueError(f"bucket size needs n >= 1: {n}")
     return 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int = 16
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: List[int]
+    prefill_venue: str
+    decode_venue: str
+    latency_s: float              # virtual-clock seconds of the batch
+    escalations: int
 
 
 class LMBackend:
@@ -365,6 +393,98 @@ class LMBackend:
                 dleaf.movedim(ax, 0)[dids] = payload
             return dst_pool
         return migrate
+
+
+class ServingEngine:
+    """Batched prefill + decode with ThinkAir placement decisions.
+
+    Bound to ``backend``, or to an ``LMBackend(cfg, capacity,
+    device=device)`` built here (the card unless ``device`` names
+    another); the controller runs on the backend's device.  Prefill and
+    decode are ``RemoteableMethod``s: the KV working set
+    (``cache_mem_bytes``) drives escalation past the clone type's heap,
+    and prefill splits its batch over ``n_clones`` clones, whose caches
+    merge on each leaf's batch axis (``model.cache_axes``).  Shorter
+    prompts are zero-padded on the right, as in the reference."""
+
+    def __init__(self, cfg, *, policy: Policy = Policy.EXEC_TIME,
+                 link: str = "wifi-local", max_batch: int = 8,
+                 capacity: int = 256, backend: Optional[LMBackend] = None,
+                 device=None):
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.capacity = capacity
+        self.backend = backend or LMBackend(cfg, capacity, device=device)
+        self.params = self.backend.params
+        self.ec = ExecutionController(policy=policy, link=link,
+                                      device=self.backend.device)
+        self.ec.pool.provision("main", 8)       # paused secondaries (paper)
+        self._batch_axis = model.cache_axes(self.backend.cfg)[0]
+        backend_ = self.backend
+
+        # KV working set drives escalation: bytes ~ cache size
+        def prefill_mem(params, tokens):
+            return backend_.cache_mem_bytes(tokens.shape[0])
+
+        self.rm_prefill = RemoteableMethod(
+            "serve_prefill", self.backend.prefill, jit=False,
+            size_fn=lambda p, t: t.numel(),
+            split_fn=self._split_prefill, merge_fn=self._merge_prefill,
+            mem_fn=prefill_mem)
+        self.rm_decode = RemoteableMethod(
+            "serve_decode", self.backend.decode, jit=False,
+            size_fn=lambda p, c, t, pos: t.shape[0])
+        self.stats = {"requests": 0, "batches": 0, "offloaded": 0,
+                      "escalations": 0}
+
+    @staticmethod
+    def _split_prefill(args, k):
+        params, tokens = args
+        return [(params, t) for t in torch.tensor_split(tokens, k, dim=0)]
+
+    def _merge_prefill(self, values):
+        toks = torch.cat([v[0] for v in values], dim=0)
+        caches = model.tree_map(lambda ax, *xs: torch.cat(xs, dim=ax),
+                                self._batch_axis, *[v[1] for v in values])
+        return toks, caches
+
+    def serve_batch(self, reqs: List[Request], *, n_clones: int = 1,
+                    force: Optional[str] = None) -> List[Completion]:
+        plen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((len(reqs), plen), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :len(r.prompt)] = r.prompt
+        res_p = self.ec.execute(self.rm_prefill, self.params,
+                                self.backend.tensor(toks), n_clones=n_clones,
+                                force=force)
+        next_tok, cache = res_p.value
+        out = [list() for _ in reqs]
+        steps_needed = max(r.max_new_tokens for r in reqs)
+        tok = next_tok[:, None]
+        total_time = res_p.time_s
+        decode_venue = "-"
+        # per-batch aggregation over prefill AND every decode step
+        offloaded = int(res_p.offloaded)
+        escalations = res_p.escalations
+        for step_i in range(steps_needed):
+            for i, t in enumerate(tok[:, 0].tolist()):
+                out[i].append(int(t))
+            pos = min(plen + step_i, self.capacity - 1)
+            res_d = self.ec.execute(self.rm_decode, self.params, cache, tok,
+                                    pos, force=force)
+            tok, cache = res_d.value
+            tok = tok[:, None]
+            total_time += res_d.time_s
+            decode_venue = res_d.venue
+            offloaded += int(res_d.offloaded)
+            escalations += res_d.escalations
+        self.stats["requests"] += len(reqs)
+        self.stats["batches"] += 1
+        self.stats["offloaded"] += offloaded
+        self.stats["escalations"] += escalations
+        return [Completion(r.rid, out[i], res_p.venue, decode_venue,
+                           total_time, escalations)
+                for i, r in enumerate(reqs)]
 
 
 class PoolExhausted(RuntimeError):
@@ -920,6 +1040,11 @@ class ServeReport:
     per_tenant: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
     peak_queue_depth: int = 0
+    # per-clone routing telemetry, keyed by clone id: clone type, prefix
+    # hit rate, and the KV handoff volume and link seconds the clone took
+    # in (disaggregated prefill)
+    per_clone: Dict[str, Dict[str, object]] = dataclasses.field(
+        default_factory=dict)
 
     def summary(self) -> str:
         """One-line digest; the fault and gateway parts appear only when
@@ -947,6 +1072,18 @@ class ServeReport:
                     f"gw_rejected={self.gateway_rejected} "
                     f"cache_hits={self.cache_hits}")
         return out
+
+
+def _with_cost(fn: Callable, **cost) -> Callable:
+    """``fn`` wrapped (name kept) to carry step-cost attributes for a
+    step-aware executor: ``seq_steps`` (sequential scan steps the dispatch
+    runs), ``step_scale`` (venue-time scale against a target step) and
+    ``prefill_tokens`` (prompt tokens of a batched prefill)."""
+    @functools.wraps(fn)
+    def run(*args):
+        return fn(*args)
+    run.__dict__.update(cost)
+    return run
 
 
 class ClientHandler:
@@ -979,6 +1116,7 @@ class ClientHandler:
                  breaker_max_probes: Optional[int] = None,
                  speculative: bool = False, spec_k: int = 4,
                  spec_corruption: float = 0.0,
+                 draft_cost: Optional[float] = None,
                  routing: str = "ledger",
                  disagg: bool = False, disagg_link: str = "nvlink",
                  disagg_compress: bool = False,
@@ -1049,6 +1187,11 @@ class ClientHandler:
         self.speculative = speculative
         self.spec_k = spec_k
         self.spec_corruption = spec_corruption
+        # venue-time scale of a draft dispatch against a target step (the
+        # ``step_scale`` a step-aware executor reads); defaults to the
+        # parameter-count ratio
+        self.draft_cost = (draft_cost if draft_cost is not None
+                           else getattr(backend, "draft_cost_ratio", 1.0))
         self.disagg = disagg
         self.disagg_link = disagg_link
         self.disagg_compress = disagg_compress
@@ -1197,6 +1340,7 @@ class ClientHandler:
         self.disagg_fallbacks = 0
         self.kv_transfer_bytes = 0.0
         self.kv_transfer_s = 0.0
+        self.per_clone_stats: Dict[int, Dict[str, object]] = {}
         self._disagg_blk_bytes: Optional[int] = None
         # the SLO gateway shares the serving timeline; it hears of a kill
         # or drain at the fault instant (the capacity-loss signal)
@@ -1620,16 +1764,30 @@ class ClientHandler:
             self._release_partner()
         self.pool.release(clones)
 
+    def _clone_stat(self, clone) -> Dict[str, object]:
+        """Per-clone routing telemetry bucket (``ServeReport.per_clone``)."""
+        st = self.per_clone_stats.get(clone.cid)
+        if st is None:
+            st = self.per_clone_stats[clone.cid] = {
+                "type": clone.ctype.name, "prefix_hit_tokens": 0,
+                "prompt_tokens": 0, "kv_transfer_bytes": 0.0,
+                "kv_transfer_s": 0.0}
+        return st
+
     def _admit(self, engine: _SlotEngine, req: ServeRequest) -> None:
         """Admit through the engine and fold its prefix-cache economics
         into the counters; disagg-eligible cold prompts take a decode slot
         and defer their prefill to the partner."""
+        st = self._clone_stat(engine.clone)
         if self._try_disagg_admit(engine, req):
             self.prompt_tokens += self.prompt_pad   # fresh eff is pad-long
+            st["prompt_tokens"] += self.prompt_pad
             return
         info = engine.admit(req, self.prompt_pad)
         self.prefix_hit_tokens += info["cached"]
         self.prompt_tokens += info["prompt"]
+        st["prefix_hit_tokens"] += info["cached"]
+        st["prompt_tokens"] += info["prompt"]
         if info["restore"]:
             self.restored_tokens += info["suffix"]
 
@@ -1813,10 +1971,12 @@ class ClientHandler:
             cow_batch = (backend.copy_fn(), backend.tensor(src),
                          backend.tensor(dst))
             nbytes += 4 * cpad * 2
-        mig_batches, xfer_s, mig_bytes = self._migration_batches(migs)
+        mig_batches, xfer_s, mig_bytes = self._migration_batches(engine,
+                                                                 migs)
         nbytes += mig_bytes
         sfx_batch = None
         mixed_batch = None
+        sfx_steps = mix_steps = 0
         if sfx:
             # suffix rows as ONE prefill, rows and steps padded to
             # power-of-two buckets (pad rows carry n_tok=0 -> trash block)
@@ -1837,9 +1997,11 @@ class ClientHandler:
                         backend.tensor(sn), backend.tensor(stabs))
             sfx_steps = -(-tpad // chunk) if chunk else tpad
             if engine.mixed and do_decode:
+                # the suffix chunks ride inside the decode window's scan
                 mix_steps = max(engine.window, sfx_steps)
                 mixed_batch = (backend.mixed_fn(kv.bs, chunk, mix_steps),) \
                     + sfx_args
+                sfx_steps = 0
             else:
                 sfx_batch = (backend.prefill_window_fn(kv.bs, tpad,
                                                        chunk=chunk),) \
@@ -1849,7 +2011,7 @@ class ClientHandler:
         if spec and do_decode:
             return self._submit_spec_round(engine, counts, rows, join_batch,
                                            cow_batch, mig_batches, sfx_batch,
-                                           tables, pos, nbytes)
+                                           sfx_steps, tables, pos, nbytes)
 
         def step_fn(params, pool, tok, pos, steps_left, tables):
             for mfn, spool, sids, dids in mig_batches:
@@ -1877,6 +2039,20 @@ class ClientHandler:
                                               steps_left, tables)
             return firsts, firsts_sfx, nxt, pool
 
+        # sequential scan steps this dispatch runs — what a step-aware
+        # executor bills: the batched join prefill, the CoW copy and each
+        # migration are one parallel pass each; the suffix scan and the
+        # decode window are sequential, fused into max(..) steps by the
+        # mixed path instead of added
+        step_fn.seq_steps = (
+            int(join_batch is not None) + int(cow_batch is not None)
+            + len(mig_batches)
+            + (mix_steps if mixed_batch is not None
+               else sfx_steps + (engine.window if do_decode else 0)))
+        # prompt tokens the batched co-located prefill folded this step, so
+        # a step-aware executor bills the whole prefill compute
+        step_fn.prefill_tokens = (int(join_batch[0].shape[1])
+                                  if join_batch is not None else 0)
         delay = (self.autoscaler.clone_ready_delay(engine.clone,
                                                    self.clock.now())
                  + self._net_s(nbytes) + xfer_s)
@@ -1888,7 +2064,7 @@ class ClientHandler:
         self._charge(engine.clone, task.venue_seconds)
         return task
 
-    def _migration_batches(self, migs: List[tuple]):
+    def _migration_batches(self, engine: _SlotEngine, migs: List[tuple]):
         """Inbound migrations as one cross-pool copy per (source pool,
         kind), block ids padded to a power-of-two bucket with 0 -> 0 pads.
         A handoff bills per block on ``disagg_link`` (int8 + scales when
@@ -1915,6 +2091,9 @@ class ClientHandler:
                 xfer_s += dt
                 self.kv_transfer_bytes += dbytes
                 self.kv_transfer_s += dt
+                st = self._clone_stat(engine.clone)
+                st["kv_transfer_bytes"] += dbytes
+                st["kv_transfer_s"] += dt
             else:
                 nbytes += int(sum(m[8] for m in group)
                               * self._kv_token_bytes())
@@ -1949,8 +2128,11 @@ class ClientHandler:
             ptoks[k, :len(eff)] = eff
             pn[k] = len(eff)
             ptabs[k] = ppool.tables[pslot]
-        pw = self.backend.prefill_window_fn(ppool.bs, tpad,
-                                            chunk=engine.chunk)
+        pw = _with_cost(self.backend.prefill_window_fn(ppool.bs, tpad,
+                                                       chunk=engine.chunk),
+                        seq_steps=(-(-tpad // engine.chunk) if engine.chunk
+                                   else tpad),
+                        prefill_tokens=0)    # chunk-billed via seq_steps
         delay = (self.autoscaler.clone_ready_delay(engine.prefill_clone,
                                                    self.clock.now())
                  + self._net_s(int(ptoks.nbytes)))
@@ -2007,7 +2189,7 @@ class ClientHandler:
 
     def _submit_spec_round(self, engine: _SlotEngine, counts, rows,
                            join_batch, cow_batch, mig_batches, sfx_batch,
-                           tables, pos, nbytes):
+                           sfx_steps, tables, pos, nbytes):
         """One speculative round: stash the verify closure (carrying the
         round's join/CoW/migration/suffix folds), then dispatch the draft
         on the draft clone; the verify goes out when the draft completes,
@@ -2045,6 +2227,10 @@ class ClientHandler:
                 greedy, pool = v_fn(params, pool, toks, pos, n_live, tables)
                 return firsts, firsts_sfx, greedy, pool
 
+            # the chunked verify scores every window position in one pass
+            step_fn.seq_steps = (int(join_batch is not None)
+                                 + int(cow_batch is not None)
+                                 + len(mig_batches) + sfx_steps + 1)
             args = (params, pool0, backend.tensor(x), pos, n_live, tables)
             return step_fn, args, nbytes + int(x.nbytes)
 
@@ -2063,7 +2249,9 @@ class ClientHandler:
             if n_c[slot] > 0:
                 hist = self._slot_history(engine, slot)
                 ctoks[slot, :n_c[slot]] = hist[int(engine.dpos[slot]):]
-        d_fn = backend.spec_draft_fn(kv.bs, tcpad, engine.spec_k)
+        d_fn = _with_cost(backend.spec_draft_fn(kv.bs, tcpad, engine.spec_k),
+                          seq_steps=tcpad + engine.spec_k,
+                          step_scale=self.draft_cost)
         dargs = (backend.draft_params, engine.draft_pool,
                  backend.tensor(ctoks),
                  backend.tensor(np.where(act, engine.dpos, 0)),
@@ -2772,7 +2960,15 @@ class ClientHandler:
             cache_hits=gw.cache_hits if gw is not None else 0,
             shed_by_slo=dict(gw.shed_by_slo) if gw is not None else {},
             per_tenant=per_tenant,
-            peak_queue_depth=self._peak_queue_depth)
+            peak_queue_depth=self._peak_queue_depth,
+            per_clone={
+                str(cid): {
+                    "type": st["type"],
+                    "prefix_hit_rate": (st["prefix_hit_tokens"]
+                                        / max(st["prompt_tokens"], 1)),
+                    "kv_transfer_bytes": float(st["kv_transfer_bytes"]),
+                    "kv_transfer_s": float(st["kv_transfer_s"])}
+                for cid, st in sorted(self.per_clone_stats.items())})
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -2781,6 +2977,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--policy", default="exec_time",
+                    help="offload policy of the batch ServingEngine")
     ap.add_argument("--handler", action="store_true",
                     help="serve through the event-driven ClientHandler")
     ap.add_argument("--rate", type=float, default=4.0,
@@ -2792,20 +2990,30 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     args = ap.parse_args(argv)
-    if not args.handler:
-        raise NotImplementedError("the batch-at-a-time ServingEngine is "
-                                  "ported in a later slice (ROADMAP Queue 1: "
-                                  "ServingEngine); use --handler")
     cfg = reduced_config(get_config(args.arch))
-    backend = LMBackend(cfg, capacity=64, device=args.device)
-    handler = ClientHandler(backend, max_batch=args.batch, kv=args.kv,
-                            decode_window=args.window)
-    reqs = poisson_arrivals(args.rate, args.requests,
-                            prompt_len=8, vocab=cfg.vocab_size,
-                            max_new_tokens=args.new_tokens)
-    report = handler.run(reqs, drain_idle_s=60.0)
-    print(report.summary())
-    print("pool:", report.pool_stats)
+    if args.handler:
+        backend = LMBackend(cfg, capacity=64, device=args.device)
+        handler = ClientHandler(backend, max_batch=args.batch, kv=args.kv,
+                                decode_window=args.window)
+        reqs = poisson_arrivals(args.rate, args.requests,
+                                prompt_len=8, vocab=cfg.vocab_size,
+                                max_new_tokens=args.new_tokens)
+        report = handler.run(reqs, drain_idle_s=60.0)
+        print(report.summary())
+        print("pool:", report.pool_stats)
+        return
+
+    eng = ServingEngine(cfg, policy=Policy(args.policy), device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=12,
+                                    dtype=np.int32), args.new_tokens)
+            for i in range(args.requests)]
+    for i in range(0, len(reqs), args.batch):
+        comps = eng.serve_batch(reqs[i:i + args.batch])
+        c = comps[0]
+        print(f"batch {i // args.batch}: venue={c.prefill_venue} "
+              f"latency={c.latency_s:.3f}s tokens={c.tokens[:6]}...")
+    print("stats:", eng.stats)
 
 
 if __name__ == "__main__":

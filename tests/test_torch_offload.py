@@ -1,0 +1,512 @@
+"""The port's offload core (controller, ``@remote``, parallelizer, the
+PowerTutor model) against the reference, on the CPU.
+
+Mirrors of the reference's controller, parallelizer and energy tests run
+torch workloads on ``device="cpu"``; parity tests feed both packages the
+same inputs from a numpy seed: PowerTutor components equal exactly,
+``split_batch`` / ``split_range`` shards equal, ``Parallelizer.run`` under a
+fixed-time executor gives equal results, and the controller's predictions
+and decisions from the same profiler history, link and pool states agree
+within rtol 1e-12.  Also the repairs this layer needed: the dispatcher's
+default executor runs on the dispatcher's device, NVLink is a good link,
+and ``Venue`` has ``fits`` / ``estimate_time`` / ``healthy`` and a phone.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+import repro.core as J
+from repro_torch import core as T
+from repro_torch.core import venues
+from repro_torch.core.clones import BOOT_SECONDS, CloneState, resume_time
+from repro_torch.core.parallel import SYNC_SECONDS_PER_CLONE
+
+CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Eager torch on the CPU pays more for its thread pool than for these
+    small ops; one thread keeps the workloads to milliseconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _ec(**kw):
+    return T.ExecutionController(device=CPU, **kw)
+
+
+def _method(heavy=False):
+    def fn(x):
+        y = x
+        for _ in range(3):
+            y = torch.tanh(y @ y.T) @ y if heavy else y + 1
+        return y.sum()
+
+    return T.RemoteableMethod(f"m{heavy}", fn, size_fn=lambda x: x.numel())
+
+
+# --------------------------------------------------------------------------- #
+# repairs
+# --------------------------------------------------------------------------- #
+def test_dispatcher_default_executor_runs_on_its_device(monkeypatch):
+    seen = []
+
+    class Spy(venues.Venue):
+        def __init__(self, spec, device=None):
+            seen.append(device)
+            super().__init__(spec, device)
+
+    monkeypatch.setattr(venues, "Venue", Spy)
+    clock = T.VirtualClock()
+    pool = T.ClonePool(clock=clock)
+    disp = T.Dispatcher(pool, clock, device=CPU)
+    task = disp.submit(pool.primary, lambda x: x + 1, (torch.ones(3),))
+    disp.wait([task])
+    assert seen == [CPU] and task.venue_seconds > 0
+    assert torch.equal(task.value, torch.full((3,), 2.0))
+    if not torch.cuda.is_available():
+        # no device named: the card, which is absent here
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.Dispatcher(pool, clock).submit(pool.primary, lambda: 1)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.ExecutionController()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            venues.host_eff_flops()
+
+
+def test_controller_hands_its_device_to_every_venue():
+    ec = _ec()
+    assert ec.phone.device == torch.device(CPU)
+    assert ec.dispatcher.device == ec.parallelizer.device == ec.phone.device
+
+
+def test_nvlink_is_a_good_connection():
+    for link, want in [("nvlink", "good"), ("wifi-local", "good"),
+                       ("wifi-internet", "good"), ("3g", "poor"),
+                       ("wifi-hotspot", "poor")]:
+        dp = T.DeviceProfiler()
+        dp.observe(conn_subtype=link)
+        assert dp.connection_quality() == want, link
+    # an unknown method over NVLink is offloaded on first encounter, as
+    # the reference does over its ICI link
+    ec = _ec(link="nvlink")
+    assert ec.execute(_method(), torch.ones(4, 4)).offloaded
+
+
+def test_venue_fits_estimate_and_phone_match_reference():
+    p, jp = venues.make_phone(), J.venues.make_phone()
+    for f in ("name", "chips", "eff_flops", "mem_bytes", "power_idle",
+              "power_peak"):
+        assert getattr(p, f) == getattr(jp, f), f
+    assert p.link.name == jp.link.name == "wifi-local"
+    v = venues.Venue(p, CPU)
+    assert v.healthy and v.fits(16 * 2 ** 20) and not v.fits(16 * 2 ** 20 + 1)
+    assert v.estimate_time(1e9) == J.Venue(jp).estimate_time(1e9) == 20.0
+
+
+# --------------------------------------------------------------------------- #
+# energy (reference tests/test_core.py and test_property.py mirrors)
+# --------------------------------------------------------------------------- #
+def test_powertutor_paper_coefficients():
+    m = T.PowerTutorModel()
+    comps = m.power_mw(T.PhoneState(cpu_util=100.0, brightness=150))
+    assert comps["cpu"] == pytest.approx(4.32 * 100 + 121.46)
+    assert comps["screen"] == pytest.approx(2.40 * 150)
+    assert m.power_mw(T.PhoneState(cell="dch"))["3g"] == 570.0
+    assert m.power_mw(T.PhoneState(cell="fach"))["3g"] == 401.0
+    assert m.power_mw(T.PhoneState(cell="idle"))["3g"] == 10.0
+    assert m.power_mw(T.PhoneState(wifi="high"))["wifi"] == 710.0
+    assert m.power_mw(T.PhoneState(wifi="low"))["wifi"] == 20.0
+
+
+def test_energy_linear_in_time():
+    m = T.PowerTutorModel()
+    st_ = T.PhoneState(cpu_util=50.0)
+    e1 = sum(m.energy_j(st_, 1.0).values())
+    e2 = sum(m.energy_j(st_, 2.0).values())
+    assert e2 == pytest.approx(2 * e1)
+
+
+@settings(deadline=None)
+@given(st.integers(1, 4), st.integers(1, 4), st.integers(1, 3))
+def test_energy_additivity(util10, bright16, secs):
+    m = T.PowerTutorModel()
+    st_ = T.PhoneState(cpu_util=util10 * 10.0, brightness=bright16 * 16)
+    total = sum(m.energy_j(st_, float(secs)).values())
+    parts = m.power_mw(st_)
+    assert total == sum(v * 1e-3 * secs for v in parts.values())
+
+
+def test_powertutor_equals_reference_exactly():
+    rng = np.random.default_rng(0)
+    m, jm = T.PowerTutorModel(), J.PowerTutorModel()
+    for _ in range(40):
+        kw = dict(cpu_util=float(rng.uniform(0, 100)),
+                  freq_high=bool(rng.integers(2)),
+                  cpu_on=bool(rng.integers(2)),
+                  brightness=int(rng.integers(0, 256)),
+                  wifi=str(rng.choice(["off", "low", "high", "transmit"])),
+                  cell=str(rng.choice(["off", "idle", "fach", "dch"])))
+        secs = float(rng.uniform(0, 30))
+        assert m.power_mw(T.PhoneState(**kw)) == \
+            jm.power_mw(J.PhoneState(**kw))
+        assert m.energy_j(T.PhoneState(**kw), secs) == \
+            jm.energy_j(J.PhoneState(**kw), secs)
+        assert m.local_exec_energy(secs) == jm.local_exec_energy(secs)
+        for link in ("wifi-local", "wifi-internet", "3g"):
+            idle, tx = secs, float(rng.uniform(0, 5))
+            assert m.offload_energy(idle, tx, link) == \
+                jm.offload_energy(idle, tx, link)
+
+
+# --------------------------------------------------------------------------- #
+# controller (reference tests/test_core.py mirrors, torch workloads)
+# --------------------------------------------------------------------------- #
+def test_first_encounter_env_only():
+    rm = _method()
+    x = torch.ones((8, 8))
+    assert _ec(policy=T.Policy.EXEC_TIME, link="wifi-local").execute(
+        rm, x).offloaded
+    ec2 = _ec(policy=T.Policy.EXEC_TIME, link="wifi-local")
+    ec2.device.observe(connectivity="none")
+    assert not ec2.execute(rm, x).offloaded
+
+
+def test_policy_none_never_offloads():
+    ec = _ec(policy=T.Policy.NONE)
+    rm = _method()
+    for _ in range(3):
+        assert not ec.execute(rm, torch.ones((4, 4))).offloaded
+
+
+def test_fault_falls_back_to_local_and_reconnects():
+    ec = _ec(policy=T.Policy.EXEC_TIME, fault_plan=T.FaultPlan(fail_next=1))
+    rm = _method()
+    res = ec.execute(rm, torch.ones((4, 4)), force="remote")
+    assert res.fell_back and res.venue == "phone"
+    assert ec.reconnect.connected
+    assert ec.decisions["fallback"] == 1
+    # the failed run's profile is discarded: no history for the method
+    assert not ec.program.known(rm.name)
+
+
+def test_oom_escalation_to_bigger_clone():
+    ec = _ec(policy=T.Policy.EXEC_TIME)
+    big = 800 * 2 ** 20
+    rm = T.RemoteableMethod("combiner", lambda x: x * 2,
+                            size_fn=lambda x: x.numel(),
+                            mem_fn=lambda x: big)
+    res = ec.execute(rm, torch.ones((16, 16)), force="remote")
+    assert res.escalations >= 1
+    assert res.venue in ("large", "x2large", "x4large", "x8large")
+    assert torch.equal(res.value, torch.full((16, 16), 2.0))
+
+
+def test_history_driven_decision_prefers_faster_venue():
+    ec = _ec(policy=T.Policy.EXEC_TIME, link="3g")
+    rm = _method()
+    x = torch.ones((4, 4))
+    ec.execute(rm, x, force="local")
+    ec.execute(rm, x, force="remote")
+    assert not ec.execute(rm, x).offloaded
+
+
+def test_transfer_bytes_accounted():
+    ec = _ec()
+    x = torch.ones((64, 64), dtype=torch.float32)
+    res = ec.execute(_method(), x, force="remote")
+    assert res.tx_bytes >= x.numel() * 4
+    assert res.rx_bytes > 0 and res.overhead_s > 0
+
+
+def test_remote_decorator_routes_through_default_controller():
+    calls = []
+
+    @T.remote(size=lambda x: x.numel(), name="doubler_torch_test")
+    def doubler(x):
+        calls.append(x.device)
+        return x * 2
+
+    assert T.REGISTRY["doubler_torch_test"] is doubler.remoteable
+    assert doubler.remoteable.callable() is doubler.remoteable.fn
+    x = torch.arange(4.0)
+    assert torch.equal(doubler(x), x * 2) and len(calls) == 1   # plain call
+    ec = _ec()
+    T.set_default_controller(ec)
+    try:
+        assert torch.equal(doubler(x), x * 2)
+    finally:
+        T.set_default_controller(None)
+    assert ec.decisions["remote"] == 1 and len(calls) > 1
+
+
+def _heavy_method():
+    def fn(n):
+        x = torch.ones((64, 64)) * (1.0 / n)
+        acc = x
+        for i in range(n * 50):
+            acc = torch.tanh(acc @ x + i)
+        return acc.sum()
+
+    return T.RemoteableMethod("heavy", fn, size_fn=lambda n: n)
+
+
+def test_offload_speedup_for_compute_bound_work():
+    ec = _ec(policy=T.Policy.EXEC_TIME, link="wifi-local")
+    rm = _heavy_method()
+    local = ec.execute(rm, 40, force="local")
+    remote = ec.execute(rm, 40, force="remote")
+    assert remote.time_s < local.time_s
+    assert remote.energy_j < local.energy_j
+    assert local.time_s / remote.time_s > 2.0
+
+
+def test_biv_exists_and_grows_with_rtt():
+    rm = _heavy_method()
+
+    def biv(link):
+        ec = _ec(policy=T.Policy.EXEC_TIME, link=link)
+        for n in (1, 2, 4, 8, 16, 32, 64):
+            if ec.execute(rm, n, force="remote").time_s < \
+                    ec.execute(rm, n, force="local").time_s:
+                return n
+        return 10 ** 9
+
+    b_wifi = biv("wifi-local")
+    assert b_wifi < 10 ** 9
+    assert biv("3g") >= b_wifi
+
+
+def test_parallelization_reduces_time():
+    ec = _ec(policy=T.Policy.EXEC_TIME, link="wifi-local")
+    ec.pool.provision("main", 8, state=CloneState.RUNNING)
+
+    def fn(xs):
+        acc = torch.zeros(xs.shape[1:])
+        for i in range(xs.shape[0] * 250):
+            acc = torch.tanh(acc + xs[i % xs.shape[0]])
+        return acc.sum()
+
+    rm = T.RemoteableMethod(
+        "par", fn, size_fn=lambda xs: xs.numel(),
+        split_fn=lambda args, k: T.split_batch(args, k),
+        merge_fn=lambda vs: sum(float(v) for v in vs))
+    x = torch.ones((8, 128, 128))
+    r1 = ec.execute(rm, x, force="remote", n_clones=1)
+    r4 = ec.execute(rm, x, force="remote", n_clones=4)
+    assert r4.time_s < r1.time_s
+    assert r4.n_clones == 4 and r4.venue == "main x4"
+
+
+def test_parallel_run_feeds_network_profiler():
+    ec = _ec(policy=T.Policy.EXEC_TIME)
+    ec.pool.provision("main", 4, state=CloneState.RUNNING)
+    rm = T.RemoteableMethod(
+        "par", lambda xs: xs.sum(), size_fn=lambda xs: xs.numel(),
+        split_fn=lambda args, k: T.split_batch(args, k),
+        merge_fn=lambda vs: sum(float(v) for v in vs))
+    ec.execute(rm, torch.ones((8, 16)), force="remote", n_clones=4)
+    assert ec.network.perceived_bw.get(ec.network.active)
+    assert ec.network.perceived_rtt.get(ec.network.active)
+
+
+# --------------------------------------------------------------------------- #
+# parallelizer (reference tests/test_core.py and test_handler.py mirrors)
+# --------------------------------------------------------------------------- #
+def test_split_batch_and_range():
+    shards = T.split_batch((np.arange(10),), 3)
+    assert [s[0].shape[0] for s in shards] == [4, 3, 3]
+    assert T.split_range(0, 8, 4) == [(0, 2), (2, 4), (4, 6), (6, 8)]
+
+
+def test_split_batch_keeps_tensors_on_their_device_and_matches_reference():
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((11, 3)).astype(np.float32)
+    b = rng.integers(0, 9, (11,)).astype(np.int32)
+    c = rng.standard_normal((7, 2, 5))
+    args = (torch.from_numpy(a), {"b": b, "c": [torch.from_numpy(c)]})
+    for k in (1, 2, 3, 4, 7):
+        got = T.split_batch(args, k)
+        want = J.split_batch((a, {"b": b, "c": [c]}), k)
+        assert len(got) == len(want) == k
+        for g, w in zip(got, want):
+            assert isinstance(g, tuple) and isinstance(g[0], torch.Tensor)
+            assert g[0].data_ptr() >= args[0].data_ptr()   # a view
+            np.testing.assert_array_equal(g[0].numpy(), np.asarray(w[0]))
+            np.testing.assert_array_equal(g[1]["b"], np.asarray(w[1]["b"]))
+            np.testing.assert_array_equal(g[1]["c"][0].numpy(),
+                                          np.asarray(w[1]["c"][0]))
+        for lo, hi in [(0, 8), (3, 17), (0, 1)]:
+            assert T.split_range(lo, hi, k) == J.split_range(lo, hi, k)
+
+
+def test_parallel_makespan_includes_resume_and_sync():
+    pool = T.ClonePool()
+    pool.provision("main", 4)
+    par = T.Parallelizer(pool, device=CPU)
+    shards = T.split_batch((torch.arange(32.0),), 4)
+    res = par.run(lambda x: x.sum(), shards,
+                  merge=lambda vs: sum(float(v) for v in vs))
+    assert res.n_clones == 4 and res.resume_s > 0
+    assert res.sync_s == pytest.approx(0.05 * 3)
+    assert res.makespan_s >= max(res.shard_times)
+    assert res.value == pytest.approx(float(torch.arange(32.0).sum()))
+
+
+def test_straggler_redispatch():
+    pool = T.ClonePool()
+    pool.provision("main", 6)
+    par = T.Parallelizer(pool, straggler_factor=2.0, device=CPU)
+    shards = T.split_batch((torch.arange(16.0),), 4)
+    res = par.run(lambda x: x.sum(), shards, merge=lambda vs: vs,
+                  shard_delays=[0.0, 0.0, 0.0, 100.0])
+    assert res.redispatches == 1 and max(res.shard_times) < 100.0
+
+
+def test_parallel_makespan_is_provision_plus_max_plus_sync():
+    pool = T.ClonePool()
+    pool.provision("main", 4)
+    par = T.Parallelizer(pool)
+    times = {0: 1.0, 1: 2.0, 2: 4.0, 3: 3.0}
+    res = par.run(lambda i: i, [(i,) for i in range(4)],
+                  venue_executor=lambda c, f, s: (int(s[0]), times[int(s[0])]),
+                  merge=sum)
+    expected = resume_time(3) + 4.0 + SYNC_SECONDS_PER_CLONE * 3
+    assert res.makespan_s == pytest.approx(expected, rel=1e-6)
+    assert max(res.shard_times) == pytest.approx(4.0) and res.value == 6
+
+
+def test_straggler_detected_at_event_time():
+    pool = T.ClonePool()
+    pool.provision("main", 6)
+    par = T.Parallelizer(pool, straggler_factor=2.0)
+    seen = {"rescues": 0}
+
+    def venue_executor(clone, fn, shard):
+        i = int(shard[0])
+        if i == 3 and seen["rescues"] == 0:
+            seen["rescues"] += 1
+            return i, 50.0
+        return i, 1.0
+
+    res = par.run(lambda i: i, [(i,) for i in range(4)],
+                  venue_executor=venue_executor, merge=list)
+    assert res.redispatches == 1
+    assert max(res.shard_times) == pytest.approx(
+        2.0 + resume_time(1) + 1.0, rel=1e-6)
+    assert res.value == [0, 1, 2, 3]
+
+
+def test_boot_seconds_counted_per_clone():
+    pool = T.ClonePool()
+    pool.acquire("x4large", n=3)
+    assert pool.stats["boots"] == 3
+    assert pool.stats["boot_seconds"] == pytest.approx(3 * BOOT_SECONDS)
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_parallelizer_equals_reference(case):
+    """A fixed-time executor and injected delays from one numpy seed:
+    makespan, shard times, resume, sync and redispatches equal."""
+    rng = np.random.default_rng(100 + case)
+    k = int(rng.integers(2, 7))
+    provisioned = int(rng.integers(0, 9))
+    times = rng.uniform(0.1, 3.0, k).tolist()
+    delays = rng.uniform(0.0, 1.0, k)
+    delays[int(rng.integers(k))] += float(rng.uniform(0.0, 40.0))
+    out = []
+    for pkg in (T, J):
+        pool = pkg.ClonePool()
+        pool.provision("main", provisioned)
+        par = pkg.Parallelizer(pool, straggler_factor=2.0)
+        res = par.run(lambda i: i, [(i,) for i in range(k)],
+                      venue_executor=lambda c, f, s: (int(s[0]),
+                                                      times[int(s[0])]),
+                      shard_delays=delays.tolist(), merge=list)
+        out.append((res.makespan_s, res.shard_times, res.resume_s,
+                    res.sync_s, res.redispatches, res.value,
+                    dict(pool.stats)))
+    assert out[0] == out[1]
+
+
+# --------------------------------------------------------------------------- #
+# controller predictions vs the reference
+# --------------------------------------------------------------------------- #
+def _seeded_controllers(seed):
+    """One port and one reference controller driven into the same state
+    from a numpy seed: link, clone-pool states, network observations and
+    program-profiler history for two methods."""
+    rng = np.random.default_rng(seed)
+    link = str(rng.choice(["wifi-local", "wifi-internet", "3g"]))
+    policy = [T.Policy.EXEC_TIME, T.Policy.ENERGY,
+              T.Policy.EXEC_TIME_AND_ENERGY][seed % 3]
+    running, paused = (int(x) for x in rng.integers(0, 4, 2))
+    busy = int(rng.integers(0, running + 1))
+    obs = [(int(rng.integers(1e3, 1e7)), float(rng.uniform(0.01, 3.0)))
+           for _ in range(3)]
+    rtts = rng.uniform(0.001, 0.3, 2).tolist()
+    hist = []
+    for name in ("alpha", "beta"):
+        for _ in range(int(rng.integers(1, 6))):
+            hist.append((name, int(rng.integers(0, 40)),
+                         str(rng.choice(["phone", "cloud"])),
+                         float(rng.uniform(1e-3, 20.0)),
+                         float(rng.uniform(0, 50)),
+                         float(rng.integers(0, 1e6)),
+                         float(rng.integers(0, 1e5))))
+    pair = []
+    for pkg, kw in ((T, dict(device=CPU)), (J, {})):
+        ec = pkg.ExecutionController(policy=pkg.Policy(policy.value),
+                                     link="wifi-local", **kw)
+        ec.set_link(link)
+        ec.pool.provision("main", running, state=pkg.CloneState.RUNNING)
+        ec.pool.provision("main", paused)
+        ups = [c for c in ec.pool.clones if c is not ec.pool.primary
+               and c.state is pkg.CloneState.RUNNING]
+        for c in ups[:busy]:
+            c.busy = True
+        for nbytes, secs in obs:
+            ec.network.observe_transfer(nbytes, secs)
+        for r in rtts:
+            ec.network.observe_rtt(r)
+        for name, skey, venue, t, e, tx, rx in hist:
+            ec.program.record(name, skey, venue, exec_time=t, energy=e,
+                              tx=tx, rx=rx)
+        pair.append(ec)
+    return pair
+
+
+def _close(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    return (math.isclose(a.time_s, b.time_s, rel_tol=1e-12)
+            and math.isclose(a.energy_j, b.energy_j, rel_tol=1e-12))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_controller_predictions_equal_reference(seed):
+    tec, jec = _seeded_controllers(seed)
+    rng = np.random.default_rng(1000 + seed)
+    for name in ("alpha", "beta", "gamma"):
+        trm = T.RemoteableMethod(name, lambda x: x)
+        jrm = J.RemoteableMethod(name, lambda x: x)
+        for _ in range(6):
+            skey = int(rng.integers(0, 45))
+            tx = int(rng.integers(100, 5e6))
+            k = int(rng.integers(1, 5))
+            assert _close(tec._predict_local(trm, skey),
+                          jec._predict_local(jrm, skey))
+            assert _close(tec._predict_remote(trm, skey, tx, k),
+                          jec._predict_remote(jrm, skey, tx, k))
+            assert math.isclose(tec._provision_estimate(k),
+                                jec._provision_estimate(k), rel_tol=1e-12)
+            for force in (None, "local", "remote"):
+                assert tec._decide(trm, skey, tx, force, k) == \
+                    jec._decide(jrm, skey, tx, force, k)
