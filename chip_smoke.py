@@ -13,8 +13,12 @@ embedding, vocab 151936; 3.09e9 parameters) on the paged path; rwkv6-7b (32 laye
 vocab 65536; 7.53e9 parameters) and recurrentgemma-2b (26 layers: 18
 RG-LRU, 8 local attention with window 2048, 10 query heads over 1 KV head
 of 256; d_model 2560, d_ff 7680, vocab 256000; 2.89e9 parameters) on the
-contiguous cohort path; for each it checks the float32 token streams of
-the kernel path against the plain path.  Phases:
+contiguous cohort path; olmoe-1b-7b (16 layers, d_model 2048, 16/16
+heads of 128, 64 experts top-8 of d_ff 1024; 6.92e9 parameters) on the
+paged path and mixtral-8x7b (d_model 4096, 32/8 heads of 128, window 4096,
+8 experts top-2 of d_ff 14336) on the cohort path at 8 of its 32 layers;
+for each it checks the float32 token streams of the kernel path against
+the plain path.  Phases:
 
 1. device   — a CUDA device must be present; prints name and power limit;
 2. build    — one nvcc per kernel source, all started together;
@@ -50,7 +54,10 @@ the kernel path against the plain path.  Phases:
               CUDA-event times of kernel, plain version and, where one
               exists, one PyTorch library call (every kernel also
               replayed from a CUDA graph, which leaves out the host's
-              launch path; the WKV scan also at its long shape);
+              launch path; the WKV scan also at its long shape); the
+              three attention kernels also at olmoe-1b-7b's serving
+              shapes (16/16 heads of 128, GQA group 1), compared and
+              timed;
 4. serving  — smollm-360m: 8 requests (prompts 16–96 tokens, two pairs
               sharing a 32-token prefix, 16 new tokens each) through the
               default paged handler path in bfloat16, decode_window 4;
@@ -147,7 +154,27 @@ the kernel path against the plain path.  Phases:
 19. parity  — phase 18's four placements in float32 with impl="cuda" held
               to impl="torch" on the same weights, and every placement
               held to the local one, under phase 5's near-tie rule (the
-              float32 cache at capacity 256 also escalates 4 times).
+              float32 cache at capacity 256 also escalates 4 times);
+20. olmoe   — olmoe-1b-7b: phase 4's trace and paged settings in bfloat16,
+              checked as phase 4 is (weight bytes, wall, tokens per
+              second and launches logged);
+21. parity  — the same trace in float32 with impl="cuda" and impl="torch"
+              on the same weights at OLMOE_PARITY_LAYERS layers, under
+              phase 5's near-tie rule extended to routing: a first
+              mismatch also passes when the two runs' first routing
+              divergence (a row routed to another top-k set) is a
+              near-tie, the plain path's k-th minus (k+1)-th router
+              probability at every parted row under twice the largest
+              probability drift of the runs up to that call, the drift
+              under ROUTE_DRIFT_MAX;
+22. mixtral — mixtral-8x7b at full width on MIXTRAL_LAYERS of its 32
+              layers (drawn at that depth) in bfloat16: 8 requests of
+              16-96 tokens, padded to 96, 16 new tokens each, through
+              ``kv="contiguous"`` (the 4096-token window keeps it off the
+              paged pool), each step run once and timed; every request
+              finishes and the cohort prefill launches flash once per
+              layer (asserted); then float32 parity as phase 21's on
+              MIXTRAL_PARITY_LAYERS layers.
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -204,12 +231,29 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 19
+PHASES = 22
 # phase 18: the ServingEngine placements and the escalation engine's
 # capacity (its bf16 cache is past the clone types' 100 MiB heap)
 PLACEMENTS = {"local": dict(force="local"), "remote": dict(force="remote"),
               "split": dict(force="remote", n_clones=2), "policy": {}}
 ESCALATE_CAPACITY = 512
+# phases 20-22: olmoe-1b-7b is served whole; mixtral-8x7b (46.7e9
+# parameters, 93 GB in bf16) at full width on its first MIXTRAL_LAYERS of
+# 32 layers (about 23.7 GB), its float32 parity on MIXTRAL_PARITY_LAYERS
+# (about 24.3 GB); olmoe's float32 parity holds at OLMOE_PARITY_LAYERS
+OLMOE_PARITY_LAYERS = 16
+MIXTRAL_LAYERS = 8
+MIXTRAL_PARITY_LAYERS = 4
+MIXTRAL_CAPACITY = PROMPT_PAD + NEW_TOKENS
+# the routing near-tie rule (hold_to_plain): a router row of the two
+# float32 runs is comparable when its inputs differ by float32 rounding
+# only (relative max difference under ROUTE_INPUT_MAX: dead and pad rows,
+# whose garbage inputs the two paths leave unequal by design, are not);
+# before the runs route a comparable row apart, their router probabilities
+# may drift by rounding only, and a drift past ROUTE_DRIFT_MAX means the
+# paths disagree for another reason, so no swap is accepted
+ROUTE_INPUT_MAX = 1e-3
+ROUTE_DRIFT_MAX = 1e-3
 
 
 def fail(msg):
@@ -342,7 +386,6 @@ def graph_ms(torch, fn, reps=50):
 
 def kernel_phase(torch, dev, cfg):
     import numpy as np
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rng = np.random.default_rng(0)
@@ -405,9 +448,25 @@ def kernel_phase(torch, dev, cfg):
                 main_err[("flash_attention", dtype_name)] = e
 
     # -------- timings at the serving shapes, in the serving dtype (bf16)
+    results.update(serving_shape_rows(torch, dev, hq, hkv, d, rng, host))
+    finish(results, host, main_err)
+    return results
+
+
+def serving_shape_rows(torch, dev, hq, hkv, d, rng, host, suffix=""):
+    """bf16 CUDA-event, host-enqueue and graph-replayed times, plain and
+    library times, bytes and flops of the three attention kernels at a
+    model's serving shapes (``hq`` / ``hkv`` heads of ``d``): paged decode
+    over MAX_BATCH slots of 97-110 tokens, paged prefill of two slots' C 8
+    chunks at pos0 36 and 32, flash over MAX_BATCH x PROMPT_PAD tokens
+    (causal; SDPA beside it).  Keys are the kernel names + ``suffix``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
     dtype = torch.bfloat16
     item = 2
     peak = H100_PEAK["bfloat16"]
+    results = {}
     lens = [97, 100, 104, 108, 101, 103, 106, 110]
     kp, vp, tables, mk = paged_inputs(torch, rng, MAX_BATCH, hkv, d, lens,
                                       dtype, dev)
@@ -415,13 +474,14 @@ def kernel_phase(torch, dev, cfg):
     q = mk(MAX_BATCH, 1, hq, d)
     byts, flops = paged_decode_cost(q, lens, hkv, d, BLOCK, item)
     decode = lambda: ops.paged_attention(q, kp, vp, tables, cls)  # noqa
-    results["paged_decode"] = dict(
-        ms=time_ms(torch, decode, host=host.setdefault("paged_decode", {})),
+    name = "paged_decode" + suffix
+    results[name] = dict(
+        ms=time_ms(torch, decode, host=host.setdefault(name, {})),
         plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(
             q[:, 0], kp, vp, tables, cls)),
         bytes=byts, flops=flops, library_ms=None,
         graph_ms=graph_ms(torch, decode))
-    results["paged_decode"]["plan"] = launch_plan(ops, "paged_decode")
+    results[name]["plan"] = launch_plan(ops, "paged_decode")
     p0 = np.array([36, 32], np.int32)
     nl = np.array([8, 8], np.int32)
     kp, vp, tables, mk = paged_inputs(torch, rng, 2, hkv, d, p0 + CHUNK,
@@ -432,31 +492,81 @@ def kernel_phase(torch, dev, cfg):
     byts, flops = paged_prefill_cost(q, p0, nl, hkv, BLOCK, item)
     prefill = lambda: ops.paged_prefill(q, kp, vp, tables, tp0,  # noqa
                                         tnl)
-    results["paged_prefill"] = dict(
-        ms=time_ms(torch, prefill, host=host.setdefault("paged_prefill", {})),
+    name = "paged_prefill" + suffix
+    results[name] = dict(
+        ms=time_ms(torch, prefill, host=host.setdefault(name, {})),
         plain_ms=time_ms(torch, lambda: ref.paged_prefill_ref(
             q.transpose(1, 2), kp, vp, tables, tp0, tnl)),
         bytes=byts, flops=flops, library_ms=None,
         graph_ms=graph_ms(torch, prefill))
-    results["paged_prefill"]["plan"] = launch_plan(ops, "paged_prefill")
+    results[name]["plan"] = launch_plan(ops, "paged_prefill")
     s = PROMPT_PAD
     q, k, v = (mk(MAX_BATCH, s, h, d) for h in (hq, hkv, hkv))
     byts = (2 * q.numel() + k.numel() + v.numel()) * item
     flops = 4 * MAX_BATCH * hq * d * s * (s + 1) // 2
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    results["flash_attention"] = dict(
+    name = "flash_attention" + suffix
+    results[name] = dict(
         ms=time_ms(torch, lambda: ops.flash_attention(q, k, v),
-                   host=host.setdefault("flash_attention", {})),
+                   host=host.setdefault(name, {})),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(qt, kt, vt)),
         bytes=byts, flops=flops,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
         graph_ms=graph_ms(torch, lambda: ops.flash_attention(q, k, v)))
     # the plan the timed bf16 calls launched with
-    results["flash_attention"]["plan"] = \
-        ops.last_plan["flash_attention"]._asdict()
+    results[name]["plan"] = ops.last_plan["flash_attention"]._asdict()
     for r in results.values():
         r["peak"] = peak
+    return results
+
+
+def olmoe_shape_phase(torch, dev, ocfg):
+    """The three attention kernels at olmoe-1b-7b's serving shapes (16
+    query heads over 16 KV heads of 128: GQA group 1, so paged decode
+    plans one row per CTA and paged prefill puts C 8 x g 1 = 8 live rows
+    in a 64-row tile): each vs its plain version in float32 and bfloat16
+    at the shapes :func:`serving_shape_rows` times, then its times and
+    bound (flash also against SDPA)."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    hq, hkv, d = ocfg.n_heads, ocfg.n_kv_heads, ocfg.head_dim
+    rng = np.random.default_rng(21)
+    main_err = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        lens = [97, 100, 104, 108, 101, 103, 106, 110]
+        kp, vp, tables, mk = paged_inputs(torch, rng, MAX_BATCH, hkv, d,
+                                          lens, dtype, dev)
+        cls = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = mk(MAX_BATCH, 1, hq, d)
+        got = ops.paged_attention(q, kp, vp, tables, cls)
+        want = ref.paged_attention_ref(q[:, 0], kp, vp, tables,
+                                       cls)[:, None]
+        main_err[("paged_decode_olmoe", dtype_name)] = compare(
+            torch, "paged_decode g1", got, want, dtype_name)
+        p0 = np.array([36, 32], np.int32)
+        nl = np.array([8, 8], np.int32)
+        kp, vp, tables, mk = paged_inputs(torch, rng, 2, hkv, d, p0 + CHUNK,
+                                          dtype, dev)
+        q = mk(2, CHUNK, hq, d)
+        tp0 = torch.from_numpy(p0).to(dev)
+        tnl = torch.from_numpy(nl).to(dev)
+        got = ops.paged_prefill(q, kp, vp, tables, tp0, tnl)
+        want = ref.paged_prefill_ref(q.transpose(1, 2), kp, vp, tables, tp0,
+                                     tnl).transpose(1, 2)
+        main_err[("paged_prefill_olmoe", dtype_name)] = compare(
+            torch, "paged_prefill g1", got, want, dtype_name)
+        q, k, v = (mk(MAX_BATCH, PROMPT_PAD, h, d) for h in (hq, hkv, hkv))
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2)).transpose(1, 2)
+        main_err[("flash_attention_olmoe", dtype_name)] = compare(
+            torch, "flash g1 D128", got, want, dtype_name)
+    host = {}
+    results = serving_shape_rows(torch, dev, hq, hkv, d, rng, host,
+                                 suffix="_olmoe")
     finish(results, host, main_err)
     return results
 
@@ -1175,29 +1285,121 @@ def parity(torch, cfg32, params, capacity, trace_fn, prompt_pad, **kw):
     top-two gap < 1e-4); fails otherwise."""
     from repro_torch.launch.serve import LMBackend
     fixed = lambda c, f, a: (f(*a), 0.05)          # noqa: E731
-    runs = {}
+    runs, routes = {}, {}
     for impl in ("cuda", "torch"):
         b = LMBackend(cfg32, capacity=capacity, params=params, device="cuda",
                       impl=impl)
-        runs[impl] = serve(torch, b, trace_fn(cfg32.vocab_size),
-                           executor=fixed, prompt_pad=prompt_pad, **kw)
+        with RouteLog(torch, cfg32.is_moe) as routes[impl]:
+            runs[impl] = serve(torch, b, trace_fn(cfg32.vocab_size),
+                               executor=fixed, prompt_pad=prompt_pad, **kw)
         n = sum(len(t) for t in runs[impl][0].values())
         log(f"  impl={impl}: wall {runs[impl][3]:.4f} s for {n} tokens "
             f"(fixed-time executor, each step run once)")
+    routing = None
+    if cfg32.is_moe:
+        routing = routing_divergence(torch, routes["cuda"].calls,
+                                     routes["torch"].calls, cfg32)
     plain = LMBackend(cfg32, capacity=capacity, params=params, device="cuda",
                       impl="torch")
-    hold_to_plain(torch, plain, runs["torch"][4], runs["cuda"][0],
-                  runs["torch"][0], prompt_pad)
+    return hold_to_plain(torch, plain, runs["torch"][4], runs["cuda"][0],
+                         runs["torch"][0], prompt_pad, routing=routing)
 
 
-def hold_to_plain(torch, plain, reqs, got, want, prompt_pad, truth=None):
+class RouteLog:
+    """While active (and ``on``), records every call of ``models/moe.py``'s
+    ``_route`` in call order, on the device: its float32 input rows (T, D)
+    and router probabilities (T, E), which the hook recomputes from the
+    call's inputs before it runs the package's own function unchanged."""
+
+    def __init__(self, torch, on=True):
+        self.torch, self.on, self.calls = torch, on, []
+
+    def __enter__(self):
+        if self.on:
+            from repro_torch.models import moe
+            self._moe, self._route = moe, moe._route
+
+            def hook(x2d, router, cfg):
+                x = x2d.float()
+                logits = self.torch.matmul(x, router.float())
+                self.calls.append((x, self.torch.softmax(logits, dim=-1)))
+                return self._route(x2d, router, cfg)
+            moe._route = hook
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self._moe._route = self._route
+
+
+def routing_divergence(torch, got, want, cfg):
+    """The first router call at which two runs of one schedule (``got``:
+    the kernel path, ``want``: the plain path; lists of (inputs,
+    probabilities) per call) route a comparable row (ROUTE_INPUT_MAX) to
+    another set of top-k experts, as a dict: the call, its layer, the
+    rows, the plain path's k-th minus (k+1)-th probability at each
+    (``gaps``) and ``drift``, the largest |probability difference| over
+    the comparable rows of that call and every earlier one; None when
+    every comparable row routes alike.  A swap of the k-th and (k+1)-th
+    experts needs their difference to change sign, which two evaluations
+    can do only where the gap is under |dp_k| + |dp_k+1| <= 2 * drift."""
+    if len(got) != len(want):
+        fail(f"router calls {len(got)} != {len(want)}: the schedules differ")
+    k = cfg.top_k
+    drift, skipped = 0.0, 0
+    for c, ((xg, pg), (xw, pw)) in enumerate(zip(got, want)):
+        if pg.shape != pw.shape:
+            fail(f"router call {c}: shapes {tuple(pg.shape)} != "
+                 f"{tuple(pw.shape)}")
+        scale = xw.abs().amax(dim=-1).clamp_min(1e-30)
+        same = (xg - xw).abs().amax(dim=-1) < ROUTE_INPUT_MAX * scale
+        skipped += int((~same).sum())
+        if not bool(same.any()):
+            continue
+        drift = max(drift, float((pg - pw).abs()[same].max()))
+        sg = torch.sort(pg, dim=-1, descending=True, stable=True)
+        sw = torch.sort(pw, dim=-1, descending=True, stable=True)
+        ids_g = sg.indices[:, :k].sort(dim=-1).values
+        ids_w = sw.indices[:, :k].sort(dim=-1).values
+        parted = (ids_g != ids_w).any(dim=-1) & same
+        rows = parted.nonzero().flatten().tolist()
+        if rows:
+            gaps = [float(sw.values[r, k - 1] - sw.values[r, k])
+                    for r in rows]
+            out = dict(call=c, calls=len(got), layer=c % cfg.n_layers,
+                       rows=rows, gaps=gaps, drift=drift)
+            log(f"  routing parts at router call {c} of {len(got)} (layer "
+                f"{out['layer']}), rows {rows}: plain-path k-th minus "
+                f"(k+1)-th probability {[f'{g:.3e}' for g in gaps]}, drift "
+                f"{drift:.3e} (near-tie bound {2 * drift:.3e}); "
+                f"{skipped} incomparable rows so far")
+            return out
+    log(f"  router calls: {len(got)}, every comparable row routes alike; "
+        f"largest probability drift {drift:.3e}; {skipped} incomparable "
+        "(dead or pad) rows")
+    return None
+
+
+def routing_near_tie(routing):
+    """Whether the first routing divergence is a near-tie: every parted
+    row's gap under twice the drift, the drift itself float32 rounding
+    (under ROUTE_DRIFT_MAX)."""
+    return (routing is not None and routing["drift"] < ROUTE_DRIFT_MAX
+            and all(g < 2 * routing["drift"] for g in routing["gaps"]))
+
+
+def hold_to_plain(torch, plain, reqs, got, want, prompt_pad, truth=None,
+                  routing=None):
     """Fails unless the streams ``got`` equal ``want``, or each first
     mismatch is a near-tie: the top-two logit gap of the plain backend
     ``plain`` at that step under 1e-4 (float32), or, when ``truth`` (the
     plain path in float32 on the same weights) is given for a bfloat16
     ``plain``, under twice the largest logit error of ``plain`` against
     ``truth`` at that step (two bfloat16 evaluations each err by up to
-    that much).  Returns the number of identical streams."""
+    that much).  For a mixture-of-experts model a first mismatch also
+    passes after a routing near-tie (``routing``: the runs' first routing
+    divergence, :func:`routing_divergence`; :func:`routing_near_tie`).
+    Returns the number of identical streams."""
     reqs = {r.rid: r for r in reqs}
     mismatched = first_mismatches(got, want)
     for rid, j in mismatched:
@@ -1212,8 +1414,13 @@ def hold_to_plain(torch, plain, reqs, got, want, prompt_pad, truth=None):
         log(f"  request {rid}: first mismatch at token {j}, plain-path "
             f"top-two gap {gap:.3e} (near-tie bound {bound:.3e})")
         if gap >= bound:
+            if routing_near_tie(routing):
+                log(f"  request {rid}: accepted after the routing near-tie "
+                    f"at router call {routing['call']}")
+                continue
             fail(f"request {rid}: token streams differ at {j} "
-                 f"(gap {gap} is no near-tie, bound {bound})")
+                 f"(gap {gap} is no near-tie, bound {bound}; routing "
+                 f"{routing})")
     log(f"  {len(want) - len(mismatched)}/{len(want)} streams identical"
         + (f", {len(mismatched)} near-tie(s) accepted" if mismatched
            else ""))
@@ -1304,11 +1511,12 @@ def paged_serving(torch, cfg):
     from repro_torch.launch.serve import LMBackend
     from repro_torch.models import model
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     backend = LMBackend(cfg, capacity=CAPACITY, device="cuda")
     torch.cuda.synchronize()
-    n_par = model.n_params(cfg)
-    log(f"  {n_par} parameters, {n_par * 2 / 1e9:.2f} GB of bf16 weights "
-        f"drawn in {time.perf_counter() - t0:.2f} s")
+    log(f"  {model.n_params(cfg)} parameters, "
+        f"{weight_bytes(backend) / 1e9:.2f} GB of weights drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
     ops.reset_launches()
     toks, rep, h, wall, _ = serve(torch, backend, trace(cfg.vocab_size))
     got = dict(ops.launches)
@@ -1317,13 +1525,24 @@ def paged_serving(torch, cfg):
     log(f"  wall {wall:.4f} s for {n_tok} tokens ({n_tok / wall:.3f} tok/s, "
         f"Venue executor re-runs each step closure); prefix hit tokens "
         f"{h.prefix_hit_tokens}, launches {got}; paged_prefill plan "
-        f"{launch_plan(ops, 'paged_prefill')}")
+        f"{launch_plan(ops, 'paged_prefill')}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if h.prefix_hit_tokens <= 0:
         fail("no prefix hit: the trace did not exercise the prefix cache")
     for name in ("paged_decode", "paged_prefill", "flash_attention"):
         if got[name] <= 0:
             fail(f"{name} never launched on the {cfg.name} serving path")
     return got
+
+
+def weight_bytes(backend):
+    """Bytes of a backend's parameters as they lie on the device (a MoE
+    router stays float32 in a bf16 model)."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+    return sum(t.numel() * t.element_size() for t in leaves(backend.params))
 
 
 def full_vocab_draft(cfg):
@@ -1955,6 +2174,78 @@ def offload_parity(torch, cfg):
     return flash
 
 
+# --------------------------------------------------------------------------- #
+# phases 20-22: mixture-of-experts serving
+# --------------------------------------------------------------------------- #
+def moe_trace(vocab):
+    """8 requests of 16-96 prompt tokens (both ends included), arriving
+    together: one cohort of MAX_BATCH rows, prompts padded to 96."""
+    import numpy as np
+    from repro_torch.core.scheduler import ServeRequest
+    rng = np.random.default_rng(14)
+    lens = [16, PROMPT_PAD] + [int(x) for x in rng.integers(17, PROMPT_PAD,
+                                                            6)]
+    return [ServeRequest(i, rng.integers(0, vocab, n, dtype=np.int32),
+                         NEW_TOKENS, arrival_t=0.0)
+            for i, n in enumerate(lens)]
+
+
+def moe_parity(torch, cfg, depth, capacity, trace_fn, **kw):
+    """Phases 21 and 22's parity: float32 ``cfg`` at full width on
+    ``depth`` layers, drawn at that depth (random weights from seed 0:
+    the whole model is never built), impl="cuda" vs impl="torch" under the
+    near-tie rules, routing included."""
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=depth)
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    log(f"  {depth} of {cfg.n_layers} layers, {model.n_params(cfg32)} "
+        "float32 parameters")
+    same = parity(torch, cfg32, params, capacity, trace_fn, PROMPT_PAD, **kw)
+    del params
+    return same
+
+
+def mixtral_serving(torch, mcfg):
+    """Phase 22: mixtral-8x7b at full width on its first MIXTRAL_LAYERS
+    layers in bf16 through the cohort mode (the 4096-token sliding window
+    keeps it off the paged pool), each step run once and timed: every
+    request finishes and each cohort prefill launches flash once per
+    layer (asserted); decode is plain ops.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import LMBackend
+    cfg = dataclasses.replace(mcfg, n_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    backend = LMBackend(cfg, capacity=MIXTRAL_CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {MIXTRAL_LAYERS} of {mcfg.n_layers} layers: "
+        f"{weight_bytes(backend) / 1e9:.2f} GB of weights drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = []
+    ops.reset_launches()
+    toks, rep, _, wall, _ = serve(
+        torch, backend, moe_trace(cfg.vocab_size),
+        executor=timed_once(torch, steps), kv="contiguous", decode_window=1)
+    got = dict(ops.launches)
+    n_tok = sum(len(t) for t in toks.values())
+    pre = [dt for name, dt in steps if name == "prefill"]
+    dec = [dt for name, dt in steps if name == "decode"]
+    log(f"  {rep.summary()}")
+    log(f"  wall {wall:.4f} s for {n_tok} tokens ({n_tok / wall:.3f} tok/s, "
+        f"each step run once); cohort prefill {len(pre)} x "
+        f"{1e3 * float(np.mean(pre)):.3f} ms, decode steps {len(dec)} "
+        f"(median {1e3 * float(np.median(dec)):.3f} ms, min "
+        f"{1e3 * min(dec):.3f} ms); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {got}")
+    want = {"paged_decode": 0, "paged_prefill": 0, "rwkv6_scan": 0,
+            "rglru_scan": 0, "flash_attention": len(pre) * MIXTRAL_LAYERS}
+    if not pre or got != want:
+        fail(f"mixtral launches {got} (prefills {len(pre)}), want {want}")
+    return got
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -2008,6 +2299,8 @@ def main():
     results.update(wkv_phase(torch, dev, rcfg))
     results.update(rglru_phase(torch, dev, gcfg))
     d256 = flash_d256_phase(torch, dev, gcfg)["flash_d256"]
+    ocfg = get_config("olmoe-1b-7b")
+    olmoe_rows = olmoe_shape_phase(torch, dev, ocfg)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2147,6 +2440,31 @@ def main():
     offload_parity_flash = offload_parity(torch, cfg)
     log(f"  flash launches: phase 18 {offload_flash}, phase 19 (impl=cuda) "
         f"{offload_parity_flash}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[20/{PHASES} olmoe] olmoe-1b-7b full width (16 layers, 64 experts "
+        "top-8), bfloat16, paged ClientHandler")
+    olmoe_launches = paged_serving(torch, ocfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[21/{PHASES} olmoe parity] olmoe-1b-7b float32 (full width), "
+        "impl=cuda vs impl=torch, same weights")
+    moe_parity(torch, ocfg, OLMOE_PARITY_LAYERS, CAPACITY, trace)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("mixtral-8x7b")
+    log(f"[22/{PHASES} mixtral] mixtral-8x7b full width ({MIXTRAL_LAYERS} of "
+        "32 layers, 8 experts top-2), bfloat16, "
+        "ClientHandler(kv='contiguous'); then float32 parity on "
+        f"{MIXTRAL_PARITY_LAYERS} layers")
+    mixtral_launches = mixtral_serving(torch, mcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_parity(torch, mcfg, MIXTRAL_PARITY_LAYERS, MIXTRAL_CAPACITY,
+               moe_trace, kv="contiguous", decode_window=1)
 
     # launches per serving path, each counted from 0 over its own run
     # (spec: both drafts' runs; disagg: both handoff runs; chaos: the five
@@ -2155,11 +2473,14 @@ def main():
         name: {"smollm": launches[name], "qwen": qwen_launches[name],
                "spec": sum(r[name] for r in spec_launches.values()),
                "disagg": sum(r[name] for r in disagg_launches.values()),
-               "chaos": sum(r[name] for r in chaos_launches.values())}
+               "chaos": sum(r[name] for r in chaos_launches.values()),
+               "olmoe": olmoe_launches[name]}
         for name in ("paged_decode", "paged_prefill", "flash_attention")}
     by_path["flash_attention"]["recurrentgemma"] = \
         rg_launches["flash_attention"]
     by_path["flash_attention"]["offload"] = offload_flash
+    by_path["flash_attention"]["mixtral"] = \
+        mixtral_launches["flash_attention"]
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
@@ -2177,6 +2498,11 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if name in by_path:
             kernels[-1]["launches_by_path"] = by_path[name]
+            # the same kernel at olmoe-1b-7b's serving shape (GQA group 1)
+            orow = olmoe_rows[name + "_olmoe"]
+            kernels[-1]["olmoe"] = {key: orow[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "graph_ms", "plan")}
         if name == "paged_decode":
             kernels[-1]["graph_ms"] = r["graph_ms"]
             kernels[-1]["long"] = {

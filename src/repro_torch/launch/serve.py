@@ -122,6 +122,13 @@ class Completion:
     escalations: int
 
 
+def _capacity_factor(cfg) -> float:
+    """The serving capacity factor: ``n_experts / top_k`` for a
+    mixture-of-experts model (every expert's buffer holds every routed
+    row), 1.25 (the ``RunContext`` default) otherwise."""
+    return cfg.n_experts / cfg.top_k if cfg.is_moe else 1.25
+
+
 class LMBackend:
     """Model binding: parameters on a device + the contiguous and paged
     step functions.
@@ -130,13 +137,16 @@ class LMBackend:
     without it parameters are drawn from a ``torch.Generator`` seeded 0.
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``impl`` defaults to the CUDA kernels on a card and the plain path
-    elsewhere.  Configurations outside the dense attention, RWKV-6 and
-    RG-LRU hybrid families raise ``NotImplementedError``.
+    elsewhere.  Configurations with a modality frontend raise
+    ``NotImplementedError``.  A mixture-of-experts model is served at
+    capacity factor ``n_experts / top_k``, where no token is dropped
+    (``ctx.moe_capacity_factor``; 1.25 for dense models, which ignore it).
 
     ``draft`` arms speculative decoding (ADR-008): a ``ModelConfig``
-    sharing the target's vocab binds a draft model on the same device and
-    context (``draft_params``, else drawn from a generator seeded 7);
-    ``"oracle"`` makes the target its own draft.
+    sharing the target's vocab binds a draft model on the same device
+    (``draft_params``, else drawn from a generator seeded 7) with its own
+    context (``draft_ctx``: the same device and kernels, the draft's own
+    capacity factor); ``"oracle"`` makes the target its own draft.
     """
 
     def __init__(self, cfg, capacity: int = 256, *,
@@ -146,7 +156,7 @@ class LMBackend:
         blocks.check_supported(cfg)
         self.cfg = cfg
         self.capacity = capacity
-        self.ctx = RunContext.on(device, impl)
+        self.ctx = RunContext.on(device, impl, _capacity_factor(cfg))
         self.device = self.ctx.device
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -154,8 +164,10 @@ class LMBackend:
         self.params = params
         self.draft_cfg = None
         self.draft_params = None
+        self.draft_ctx = None
         if draft == "oracle":
             self.draft_cfg, self.draft_params = cfg, params
+            self.draft_ctx = self.ctx
         elif draft is not None:
             if draft.vocab_size != cfg.vocab_size:
                 raise ValueError(
@@ -167,6 +179,8 @@ class LMBackend:
                 gen = torch.Generator(device=self.device).manual_seed(7)
                 draft_params = model.init(draft, gen, self.device)
             self.draft_cfg, self.draft_params = draft, draft_params
+            self.draft_ctx = dataclasses.replace(
+                self.ctx, moe_capacity_factor=_capacity_factor(draft))
         elif draft_params is not None:
             raise ValueError("draft_params given without a draft config")
 
@@ -245,7 +259,7 @@ class LMBackend:
         (S,Tc), cpos0 (S,), n_c (S,), tok (S,1), pos (S,), k_live (S,),
         tables (S,M)) -> (drafts (S, k_max), dpool)`` (the catch-up and the
         proposals of :func:`model.draft_loop`, decode mode only)."""
-        dcfg, ctx, capacity = self.draft_cfg, self.ctx, self.capacity
+        dcfg, ctx, capacity = self.draft_cfg, self.draft_ctx, self.capacity
 
         def draft(dparams, dpool, ctoks, cpos0, n_c, tok, pos, k_live,
                   tables):

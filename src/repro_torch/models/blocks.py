@@ -1,9 +1,10 @@
 """Residual blocks: attention (+ paged, contiguous or ring KV), RG-LRU or
 RWKV-6, each with norm + feed-forward.
 
-This covers the dense attention family (full or sliding-window), RWKV-6
-and the RG-LRU hybrid.  MoE feed-forwards and modality frontends raise
-``NotImplementedError`` naming their ROADMAP item.
+This covers the dense attention family (full or sliding-window) with a
+dense or mixture-of-experts feed-forward (``models/moe.py``), RWKV-6 and
+the RG-LRU hybrid.  Modality frontends raise ``NotImplementedError``
+naming their ROADMAP item.
 
 KV caches are updated **in place**: every write is a function of the
 step's inputs only (positions, block tables, the tokens' K/V), and
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import rglru, rwkv6
+from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import apply_norm, apply_rope, attention_xla, mlp
 from repro_torch.models.spec import ParamSpec
@@ -28,9 +29,6 @@ from repro_torch.models.spec import ParamSpec
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations later slices of the port cover."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE is ported later "
-                                  "(ROADMAP Queue 1 item 7, MoE)")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are "
                                   "ported later (ROADMAP Queue 1 item 8)")
@@ -77,7 +75,7 @@ def block_specs(cfg: ModelConfig, kind: str):
     sp = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg)}
     if kind == "attn":
         sp["attn"] = attn_specs(cfg)
-        sp["ffn"] = mlp_specs(cfg)
+        sp["ffn"] = moe.moe_specs(cfg) if cfg.is_moe else mlp_specs(cfg)
     elif kind == "rglru":
         sp["rec"] = rglru.rglru_specs(cfg)
         sp["ffn"] = mlp_specs(cfg)
@@ -278,6 +276,8 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
             cache["cm"] if cache is not None else None, mode)
         new_cache = ({"tm": tm_cache, "cm": cm_cache}
                      if tm_cache is not None else None)
+    elif kind == "attn" and cfg.is_moe:
+        ffn, _ = moe.moe_apply(params["ffn"], h2, cfg, ctx)  # aux: training
     else:
         ffn = mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
     return x + ffn, new_cache

@@ -32,11 +32,15 @@ class RunContext:
     attention of ``layers.attention_xla`` — the end-to-end oracle.
     ``paged_fused`` picks the GQA-fused decode grid (one CTA per (slot,
     kv-head)) over the per-query-head grid kept as the A/B baseline.
+    ``moe_capacity_factor`` sizes each expert's buffer in
+    ``models/moe.py`` (serving passes ``n_experts / top_k``: no token is
+    dropped).  There is no mesh: the port runs on one device.
     """
 
     device: torch.device
     impl: str
     paged_fused: bool = True
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -44,10 +48,11 @@ class RunContext:
 
     @classmethod
     def on(cls, device: Optional[Union[str, torch.device]] = None,
-           impl: Optional[str] = None) -> "RunContext":
+           impl: Optional[str] = None,
+           moe_capacity_factor: float = 1.25) -> "RunContext":
         """Context for ``device`` (see :func:`resolve_device`); the kernels
         are the default on a card, the plain path everywhere else."""
         dev = resolve_device(device)
         if impl is None:
             impl = "cuda" if dev.type == "cuda" else "torch"
-        return cls(dev, impl)
+        return cls(dev, impl, moe_capacity_factor=moe_capacity_factor)

@@ -89,6 +89,17 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched :func:`matmul_f32`: (E, C, D) x (E, D, F) -> (E, C, F) in
+    float32, not rounded to the operands' dtype (the reference's expert
+    ``einsum(..., preferred_element_type=jnp.float32)``).  Two bf16
+    operands on the card take one ``aten::bmm.dtype`` (no float32 copy of
+    an expert weight); elsewhere both are upcast."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def mlp(params: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     """Dense (optionally gated) MLP.  The up and gate products stay float32
     into the activation (:func:`matmul_f32`); the hidden state is rounded

@@ -25,7 +25,7 @@ from repro_torch.models import blocks
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import apply_norm, matmul_f32, rope_tables
 from repro_torch.models.spec import (ParamSpec, init_params, map_specs,
-                                     param_count, stack_specs)
+                                     param_count, spec_leaves, stack_specs)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -79,6 +79,19 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def n_params(cfg: ModelConfig) -> int:
     return param_count(param_specs(cfg))
+
+
+def n_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k of n_experts expert params)."""
+    if not cfg.is_moe:
+        return n_params(cfg)
+    total = n_params(cfg)
+    expert_leaves = [
+        s for _, s in spec_leaves(param_specs(cfg))
+        if len(s.shape) >= 3 and cfg.n_experts in s.shape[:2]
+        and s.shape[-1] != cfg.n_experts]
+    expert_total = sum(math.prod(s.shape) for s in expert_leaves)
+    return total - expert_total + expert_total * cfg.top_k // cfg.n_experts
 
 
 def layers(cfg: ModelConfig, params: Dict, cache: Optional[Dict]

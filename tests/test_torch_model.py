@@ -300,8 +300,8 @@ def test_supports_chunked_and_unported_paths():
     assert not tm.supports_chunked_prefill(rg)
     with pytest.raises(NotImplementedError, match="full attention"):
         tm.init_paged_cache(rg, 2, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_paged_cache(t_reduced_config(t_get_config("olmoe-1b-7b")),
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tm.init_paged_cache(t_reduced_config(t_get_config("paligemma-3b")),
                             2, 4, 4)
     with pytest.raises(NotImplementedError, match="training"):
         tm.forward(tcfg, _setup()["tp"], {"tokens": torch.zeros(1, 4)},
@@ -318,16 +318,18 @@ def bf16_pair(rng, shape, scale=1.0):
     return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
 
 
-def assert_bf16_parity(got, want, ulps=1, max_share=BF16_MAX_SHARE):
+def assert_bf16_parity(got, want, ulps=1, max_share=BF16_MAX_SHARE,
+                       mag=0.0):
     """``got`` (torch) and ``want`` (jax), both bf16: every element within
     ``ulps`` bf16 ulps (2**(e - 7) for a magnitude in [2**e, 2**(e + 1)))
-    of the largest of its two values and the reference output's RMS, and
-    at most ``max_share`` of the elements differing."""
+    of the largest of its two values, the reference output's RMS and
+    ``mag`` (per element, or a scalar), and at most ``max_share`` of the
+    elements differing."""
     g = got.float().numpy()
     w = np.asarray(want.astype(jnp.float32))
     assert g.shape == w.shape
     rms = max(float(np.sqrt(np.mean(np.square(w)))), 1e-30)
-    mag = np.maximum(np.maximum(np.abs(g), np.abs(w)), rms)
+    mag = np.maximum(np.maximum(np.maximum(np.abs(g), np.abs(w)), rms), mag)
     ulp = ulps * np.exp2(np.floor(np.log2(mag)) - 7)
     diff = np.abs(g - w)
     assert (diff <= ulp).all(), f"{(diff > ulp).mean():.2%} beyond one ulp"

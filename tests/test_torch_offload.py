@@ -299,8 +299,17 @@ def test_parallelization_reduces_time():
         split_fn=lambda args, k: T.split_batch(args, k),
         merge_fn=lambda vs: sum(float(v) for v in vs))
     x = torch.ones((8, 128, 128))
-    r1 = ec.execute(rm, x, force="remote", n_clones=1)
-    r4 = ec.execute(rm, x, force="remote", n_clones=4)
+
+    def best(k):
+        # each time_s is one host-clock measurement (the min of two runs,
+        # Venue.execute) scaled to the venue; on a loaded host a shard
+        # descheduled for tens of ms outweighs the whole 4-way gain, so
+        # each side is taken as its best of three executions
+        return min((ec.execute(rm, x, force="remote", n_clones=k)
+                    for _ in range(3)), key=lambda r: r.time_s)
+
+    r1 = best(1)
+    r4 = best(4)
     assert r4.time_s < r1.time_s
     assert r4.n_clones == 4 and r4.venue == "main x4"
 

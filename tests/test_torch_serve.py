@@ -208,11 +208,12 @@ def test_handler_validation_errors():
 
 
 def test_lm_backend_rejects_windowed_and_recurrent_configs():
-    """MoE (olmoe) is a later slice; the RG-LRU hybrid with its sliding
-    window (recurrentgemma, tests/test_torch_rglru.py) and RWKV-6
-    (tests/test_torch_rwkv6.py) are served through kv='contiguous' only."""
-    cfg = t_reduced_config(t_get_config("olmoe-1b-7b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Modality frontends (paligemma) are a later slice; the RG-LRU hybrid
+    with its sliding window (recurrentgemma, tests/test_torch_rglru.py)
+    and RWKV-6 (tests/test_torch_rwkv6.py) are served through
+    kv='contiguous' only."""
+    cfg = t_reduced_config(t_get_config("paligemma-3b"))
+    with pytest.raises(NotImplementedError, match="item 8"):
         tserve.LMBackend(cfg, capacity=CAP, device="cpu")
     cfg = t_reduced_config(t_get_config("recurrentgemma-2b"))
     backend = tserve.LMBackend(cfg, capacity=CAP, device="cpu")
