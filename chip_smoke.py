@@ -18,7 +18,13 @@ heads of 128, 64 experts top-8 of d_ff 1024; 6.92e9 parameters) on the
 paged path and mixtral-8x7b (d_model 4096, 32/8 heads of 128, window 4096,
 8 experts top-2 of d_ff 14336) on the cohort path at 8 of its 32 layers;
 for each it checks the float32 token streams of the kernel path against
-the plain path.  Phases:
+the plain path.  Then it trains: smollm-360m whole through
+``FleetTrainer`` (faults, checkpoints, a resume), float32 train steps on
+the card against the host, the train-mode loss through the three
+sequence kernels against the plain path, and the two modality frontends,
+hubert-xlarge (48 layers, d_model 1280, audio stub, masked loss) and
+paligemma-3b (18 layers, d_model 2048, vocab 257216, vision stub,
+prefix-LM).  Phases:
 
 1. device   — a CUDA device must be present; prints name and power limit;
 2. build    — one nvcc per kernel source, all started together;
@@ -174,7 +180,39 @@ the plain path.  Phases:
               paged pool), each step run once and timed; every request
               finishes and the cohort prefill launches flash once per
               layer (asserted); then float32 parity as phase 21's on
-              MIXTRAL_PARITY_LAYERS layers.
+              MIXTRAL_PARITY_LAYERS layers;
+23. train   — smollm-360m at full width and depth in bfloat16 through
+              ``FleetTrainer`` (impl="torch", full recomputation, AdamW
+              with float32 moments): TRAIN_STEPS steps of TRAIN_BATCH x
+              TRAIN_SEQ tokens, a checkpoint every TRAIN_CKPT_EVERY steps,
+              ``FaultPlan(fail_every=TRAIN_FAIL_EVERY)``: at least one
+              restart, every step done, all losses finite, every
+              parameter leaf moved, ``opt["step"]`` right; then a second
+              trainer over the same directory resumes and runs only
+              TRAIN_RESUME_STEPS more, its first loss within RESUME_RTOL of
+              the saved state's forward on that batch; prints losses, the
+              median step time and peak memory;
+24. train parity — float32, TF32 off: (a) smollm-360m at full width on
+              TRAIN_PARITY_LAYERS layers, TRAIN_PARITY_STEPS train steps on
+              the card and on the host from the same weights and batches,
+              losses and grad norms within TRAIN_PARITY_RTOL; (b) the
+              train-mode loss at impl="cuda" against impl="torch" under
+              ``no_grad`` for smollm-360m (32 layers), rwkv6-7b
+              (KERNEL_TRAIN_RWKV_LAYERS layers) and recurrentgemma-2b (26
+              layers) at full width, within KERNEL_LOSS_TOL, with one
+              flash_attention, rwkv6_scan or rglru_scan launch per layer of
+              its kind (asserted); (c) impl="cuda" with grad enabled
+              raises;
+25. frontends — hubert-xlarge (batch 4 x 256 frames, about 8% of them in
+              the loss mask) and paligemma-3b (batch 2, 256 patches + 64
+              text tokens) at full width and depth in bfloat16 with
+              float32 optimizer state, FRONTEND_STEPS train steps each
+              (losses finite, step times and peak memory printed), one
+              paligemma forward(mode="prefill") with patches; then
+              paligemma in float32 on 2 layers: moving the last patch
+              changes the first patch's logits (the prefix sees itself
+              both ways), moving the last text token changes no earlier
+              position.
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -231,7 +269,7 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 22
+PHASES = 25
 # phase 18: the ServingEngine placements and the escalation engine's
 # capacity (its bf16 cache is past the clone types' 100 MiB heap)
 PLACEMENTS = {"local": dict(force="local"), "remote": dict(force="remote"),
@@ -254,6 +292,30 @@ MIXTRAL_CAPACITY = PROMPT_PAD + NEW_TOKENS
 # paths disagree for another reason, so no swap is accepted
 ROUTE_INPUT_MAX = 1e-3
 ROUTE_DRIFT_MAX = 1e-3
+# phase 23: smollm-360m trained whole in bf16 through FleetTrainer; the
+# resumed trainer's first loss is held to the saved state's forward within
+# RESUME_RTOL (a tolerance, not deterministic algorithms: the embedding's
+# backward accumulates with atomics, the forward has none)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 8
+TRAIN_CKPT_EVERY, TRAIN_FAIL_EVERY, TRAIN_RESUME_STEPS = 2, 5, 4
+TRAIN_WARMUP = 2                 # AdamW reaches its 3e-4 peak at step 2
+RESUME_RTOL = 1e-5
+# phase 24: (a) float32 train steps card vs host on TRAIN_PARITY_LAYERS of
+# smollm-360m's 32 layers at (batch, seq) TRAIN_PARITY_SHAPE, losses and
+# grad norms within TRAIN_PARITY_RTOL; (b) the train loss through the
+# kernels vs the plain path within KERNEL_LOSS_TOL (rwkv6-7b on
+# KERNEL_TRAIN_RWKV_LAYERS of 32 layers, the others whole)
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_STEPS = 4, 3
+TRAIN_PARITY_SHAPE = (2, 64)
+TRAIN_PARITY_RTOL = 1e-4
+KERNEL_TRAIN_SHAPE = (2, 256)
+KERNEL_TRAIN_RWKV_LAYERS = 8
+KERNEL_LOSS_TOL = 1e-4
+# phase 25: (batch, seq) of hubert-xlarge (frames) and paligemma-3b (256
+# patches + 64 text tokens), FRONTEND_STEPS train steps each
+FRONTEND_STEPS = 3
+HUBERT_SHAPE = (4, 256)
+PALIGEMMA_SHAPE = (2, 320)
 
 
 def fail(msg):
@@ -2246,6 +2308,307 @@ def mixtral_serving(torch, mcfg):
     return got
 
 
+# --------------------------------------------------------------------------- #
+# phases 23-25: training
+# --------------------------------------------------------------------------- #
+def device_batch(batch):
+    return {k: v.to("cuda") for k, v in batch.items()}
+
+
+def timed_steps(torch, step_fn, times):
+    """``step_fn`` timed on the host clock between device synchronisations
+    (seconds appended to ``times``)."""
+    def run(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def check_losses(name, losses):
+    import math
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: losses {losses}")
+
+
+def train_phase(torch, cfg):
+    """Phase 23: ``cfg`` at full width and depth in bf16 through
+    ``FleetTrainer`` on the card: TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens, a checkpoint every TRAIN_CKPT_EVERY steps, a fault
+    at every TRAIN_FAIL_EVERY-th step check.  Then a second trainer over
+    the same directory resumes and runs only TRAIN_RESUME_STEPS more."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import FleetTrainer
+    from repro_torch.models import model
+    from repro_torch.optim.adamw import OptConfig
+    opt = OptConfig(warmup_steps=TRAIN_WARMUP)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        data = DataConfig(TRAIN_BATCH, TRAIN_SEQ)
+        t1 = FleetTrainer(cfg, steps_total=TRAIN_STEPS, data_cfg=data,
+                          opt_cfg=opt, ckpt_dir=ckpt_dir,
+                          ckpt_every=TRAIN_CKPT_EVERY,
+                          fault_plan=FaultPlan(fail_every=TRAIN_FAIL_EVERY),
+                          device="cuda")
+        state = t1.init_state()
+        before = [x.clone() for x in model._tree_leaves(state["params"])]
+        times = []
+        t1.step_fn = timed_steps(torch, t1.step_fn, times)
+        t0 = time.perf_counter()
+        state = t1.run(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = t1.report
+        check_losses("train", rep.losses)
+        if rep.restarts < 1 or rep.steps_done != TRAIN_STEPS \
+                or int(state["opt"]["step"]) != TRAIN_STEPS:
+            fail(f"train: restarts {rep.restarts}, steps {rep.steps_done}, "
+                 f"opt step {int(state['opt']['step'])}")
+        still = [i for i, (a, b) in enumerate(zip(
+            before, model._tree_leaves(state["params"])))
+                 if torch.equal(a, b)]
+        if still:
+            fail(f"train: parameter leaves {still} never moved")
+        del before
+        med = float(np.median(times))
+        log(f"  {model.n_params(cfg)} parameters; {rep.steps_done} steps, "
+            f"{rep.restarts} restart(s) from the checkpoint; losses "
+            f"{[round(x, 4) for x in rep.losses]}")
+        log(f"  step time median {1e3 * med:.1f} ms (min "
+            f"{1e3 * min(times):.1f}, max {1e3 * max(times):.1f}; "
+            f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s); run wall "
+            f"{wall:.2f} s with {TRAIN_STEPS // TRAIN_CKPT_EVERY + 1} "
+            f"checkpoint saves; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        # the resumed trainer's first step starts from the saved state: its
+        # loss is the first trainer's final state's forward on the same
+        # batch, recorded for autograd as a step's is (without autograd the
+        # bf16 products take aten::mm.dtype, other sums); a forward has no
+        # atomics: equal in practice, held to RESUME_RTOL
+        live = model.tree_map(lambda t: t.detach().requires_grad_(),
+                              state["params"])
+        want, _ = model.forward(cfg, live, t1.batch(TRAIN_STEPS), t1.ctx,
+                                "train")
+        want = float(want.detach())
+        del live
+        del state
+        t2 = FleetTrainer(cfg, steps_total=TRAIN_STEPS + TRAIN_RESUME_STEPS,
+                          data_cfg=data, opt_cfg=opt, ckpt_dir=ckpt_dir,
+                          ckpt_every=TRAIN_CKPT_EVERY, device="cuda")
+        state = t2.run()
+        r2 = t2.report
+        check_losses("resume", r2.losses)
+        got = r2.losses[0]
+        if r2.restarts != 1 or r2.steps_done != TRAIN_RESUME_STEPS \
+                or int(state["opt"]["step"]) != TRAIN_STEPS \
+                + TRAIN_RESUME_STEPS or abs(got - want) > RESUME_RTOL * abs(
+                    want):
+            fail(f"resume: restarts {r2.restarts}, steps {r2.steps_done}, "
+                 f"opt step {int(state['opt']['step'])}, first loss {got} "
+                 f"vs {want}")
+        log(f"  resume: {r2.steps_done} remaining steps from step "
+            f"{TRAIN_STEPS}, opt step {int(state['opt']['step'])}; first "
+            f"loss {got!r} vs the saved state's {want!r} "
+            f"(|diff| {abs(got - want):.3e}); losses "
+            f"{[round(x, 4) for x in r2.losses]}")
+        del state
+        return {"step_ms": 1e3 * med, "peak_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def train_parity_phase(torch, cfg, rcfg, gcfg):
+    """Phase 24: (a) float32 ``cfg`` at full width on TRAIN_PARITY_LAYERS
+    layers, TRAIN_PARITY_STEPS train steps on the card and on the host
+    from the same weights and batches: losses and grad norms within
+    TRAIN_PARITY_RTOL; (b) the train-mode loss at impl="cuda" against
+    impl="torch" under no_grad for smollm-360m, rwkv6-7b and
+    recurrentgemma-2b at full width (KERNEL_LOSS_TOL), counting the
+    kernels' launches; (c) impl="cuda" with grad enabled raises.  Returns
+    the launches of (b) by kernel."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=TRAIN_PARITY_LAYERS)
+    params = model.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                         torch.device("cuda"))
+    pipe = Pipeline(cfg32, DataConfig(*TRAIN_PARITY_SHAPE))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = model.tree_map(lambda t: t.to(dev, copy=True), params)
+        step = S.build_train_step(cfg32, adamw.OptConfig(),
+                                  S.make_context(dev))
+        state = {"params": p, "opt": adamw.init(p)}
+        out = []
+        t0 = time.perf_counter()
+        for i in range(TRAIN_PARITY_STEPS):
+            batch = {k: v.to(dev) for k, v in pipe.batch(i).items()}
+            state, m = step(state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = out
+        log(f"  (a) {dev}: (loss, grad norm) per step {out} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del state, p
+    del params
+    worst = max(abs(a - b) / abs(b) for x, y in zip(runs["cuda"], runs["cpu"])
+                for a, b in zip(x, y))
+    log(f"  (a) {TRAIN_PARITY_LAYERS} of {cfg.n_layers} layers, batch "
+        f"{TRAIN_PARITY_SHAPE}: largest relative difference card vs host "
+        f"{worst:.3e} (tolerance {TRAIN_PARITY_RTOL})")
+    if worst > TRAIN_PARITY_RTOL:
+        fail(f"train parity: card {runs['cuda']} vs host {runs['cpu']}")
+
+    launched = {}
+    for c, depth in ((cfg, cfg.n_layers), (rcfg, KERNEL_TRAIN_RWKV_LAYERS),
+                     (gcfg, gcfg.n_layers)):
+        c32 = dataclasses.replace(c, dtype="float32", n_layers=depth)
+        params = model.init(c32, torch.Generator(device="cuda").manual_seed(0),
+                            torch.device("cuda"))
+        batch = device_batch(Pipeline(c32, DataConfig(*KERNEL_TRAIN_SHAPE))
+                             .batch(0))
+        with torch.no_grad():
+            ops.reset_launches()
+            got, gm = model.forward(c32, params, batch,
+                                    S.make_context("cuda", impl="cuda"),
+                                    "train")
+            got = float(got)
+            counts = {k: v for k, v in ops.launches.items() if v}
+            want, _ = model.forward(c32, params, batch,
+                                    S.make_context("cuda"), "train")
+            want = float(want)
+        n_attn = sum(k == "attn" for k in c32.layer_kinds())
+        expect = {"flash_attention": n_attn,
+                  "rwkv6_scan": sum(k == "rwkv" for k in c32.layer_kinds()),
+                  "rglru_scan": sum(k == "rglru" for k in c32.layer_kinds())}
+        expect = {k: v for k, v in expect.items() if v}
+        log(f"  (b) {c.name} {depth} of {c.n_layers} layers, batch "
+            f"{KERNEL_TRAIN_SHAPE}: loss impl=cuda {got!r} impl=torch "
+            f"{want!r} (|diff| {abs(got - want):.3e}); launches {counts}")
+        if counts != expect or abs(got - want) > KERNEL_LOSS_TOL:
+            fail(f"{c.name}: train loss {got} vs {want}, launches {counts} "
+                 f"(want {expect})")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+        if c is cfg:
+            live = model.tree_map(lambda t: t.detach().requires_grad_(),
+                                  params)
+            try:
+                model.forward(c32, live, batch,
+                              S.make_context("cuda", impl="cuda"), "train")
+            except RuntimeError as e:
+                log(f"  (c) impl=cuda with grad enabled raises: {e}")
+            else:
+                fail("impl=cuda with grad enabled did not raise")
+            del live
+        del params, batch
+        torch.cuda.empty_cache()
+    return launched
+
+
+def frontend_phase(torch):
+    """Phase 25: hubert-xlarge (audio stub, masked loss) and paligemma-3b
+    (vision stub, prefix-LM) at full width and depth in bf16 with float32
+    optimizer state: FRONTEND_STEPS train steps each, then one paligemma
+    forward(mode="prefill") with patches; then paligemma in float32 on 2
+    layers: moving the last patch changes the first patch's output,
+    moving the last text token changes no position before it."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers, model
+    from repro_torch.optim import adamw
+    ctx = S.make_context("cuda")
+    out = {}
+    for name, shape in (("hubert-xlarge", HUBERT_SHAPE),
+                        ("paligemma-3b", PALIGEMMA_SHAPE)):
+        cfg = get_config(name)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            torch.device("cuda"))
+        state = {"params": params, "opt": adamw.init(params)}
+        del params
+        pipe = Pipeline(cfg, DataConfig(*shape))
+        times, losses, masked = [], [], []
+        step = timed_steps(torch, S.build_train_step(cfg, adamw.OptConfig(),
+                                                     ctx), times)
+        for i in range(FRONTEND_STEPS):
+            batch = device_batch(pipe.batch(i))
+            if "loss_mask" in batch:
+                masked.append(int(batch["loss_mask"].sum()))
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        check_losses(name, losses)
+        if int(state["opt"]["step"]) != FRONTEND_STEPS:
+            fail(f"{name}: opt step {int(state['opt']['step'])}")
+        log(f"  {name}: {model.n_params(cfg)} parameters, batch {shape}"
+            f"{'' if not masked else f', masked positions {masked}'}; "
+            f"losses {[round(x, 4) for x in losses]}; step times "
+            f"{[round(1e3 * t, 1) for t in times]} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        out[name] = {"step_ms": 1e3 * float(np.median(times)),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if cfg.frontend == "vision":
+            batch = device_batch(pipe.batch(FRONTEND_STEPS))
+            with torch.no_grad():
+                logits, _ = model.forward(cfg, state["params"], batch, ctx,
+                                          "prefill")
+            if tuple(logits.shape) != (shape[0], cfg.vocab_size) \
+                    or not bool(torch.isfinite(logits).all()):
+                fail(f"{name}: prefill logits {tuple(logits.shape)}")
+            log(f"  {name}: forward(mode='prefill') with {cfg.n_patches} "
+                f"patches: logits {tuple(logits.shape)}, finite")
+        del state, step
+        torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("paligemma-3b"), dtype="float32",
+                              n_layers=2)
+    params = model.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        torch.device("cuda"))
+    batch = device_batch(Pipeline(cfg, DataConfig(*PALIGEMMA_SHAPE))
+                         .batch(0))
+
+    def per_position(b):
+        with torch.no_grad():
+            x, pos, prefix = model.embed_inputs(cfg, params, b)
+            rope = layers.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+            x, _, _ = model.apply_stack(cfg, params, x, ctx, rope, None,
+                                        "train", prefix, None)
+            return model.unembed(cfg, params, x)
+
+    base = per_position(batch)
+    moved = dict(batch, patches=batch["patches"].clone())
+    moved["patches"][:, -1] += 10.0
+    first = float((per_position(moved)[:, 0] - base[:, 0]).abs().max())
+    later = dict(batch, tokens=batch["tokens"].clone())
+    later["tokens"][:, -1] = (later["tokens"][:, -1] + 1) % cfg.vocab_size
+    after = per_position(later)
+    earlier = float((after[:, :-1] - base[:, :-1]).abs().max())
+    last = float((after[:, -1] - base[:, -1]).abs().max())
+    log(f"  paligemma-3b float32, 2 layers: moving the last patch moves the "
+        f"first patch's logits by {first:.3e}; moving the last text token "
+        f"moves the earlier positions by {earlier!r} and its own by "
+        f"{last:.3e}")
+    if not first > 0 or earlier != 0 or not last > 0:
+        fail("paligemma prefix-LM attention")
+    del params, base, after
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -2465,6 +2828,30 @@ def main():
     torch.cuda.empty_cache()
     moe_parity(torch, mcfg, MIXTRAL_PARITY_LAYERS, MIXTRAL_CAPACITY,
                moe_trace, kv="contiguous", decode_window=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[23/{PHASES} train] smollm-360m full width and depth, bfloat16, "
+        f"FleetTrainer: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, a checkpoint every {TRAIN_CKPT_EVERY}, a fault every "
+        f"{TRAIN_FAIL_EVERY}th check; then a resume")
+    train_phase(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[24/{PHASES} train parity] float32: smollm-360m train steps card "
+        "vs host; the train loss impl=cuda vs impl=torch for smollm-360m, "
+        "rwkv6-7b and recurrentgemma-2b; the gradient refusal")
+    train_launches = train_parity_phase(torch, cfg, rcfg, gcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[25/{PHASES} frontends] hubert-xlarge and paligemma-3b full width "
+        f"and depth, bfloat16, {FRONTEND_STEPS} train steps each; the "
+        "prefix-LM check in float32")
+    frontend_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # launches per serving path, each counted from 0 over its own run
     # (spec: both drafts' runs; disagg: both handoff runs; chaos: the five
@@ -2481,10 +2868,13 @@ def main():
     by_path["flash_attention"]["offload"] = offload_flash
     by_path["flash_attention"]["mixtral"] = \
         mixtral_launches["flash_attention"]
+    by_path["flash_attention"]["train"] = train_launches["flash_attention"]
+    by_path["rwkv6_scan"] = {"rwkv6": rwkv_launches["rwkv6_scan"],
+                             "train": train_launches["rwkv6_scan"]}
+    by_path["rglru_scan"] = {"recurrentgemma": rg_launches["rglru_scan"],
+                             "train": train_launches["rglru_scan"]}
     for name, paths in by_path.items():
         launches[name] = sum(paths.values())
-    launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
-    launches["rglru_scan"] = rg_launches["rglru_scan"]
     kernels = []
     for name in ("paged_decode", "paged_prefill", "flash_attention",
                  "rwkv6_scan", "rglru_scan"):
@@ -2496,8 +2886,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if name in by_path:
-            kernels[-1]["launches_by_path"] = by_path[name]
+        kernels[-1]["launches_by_path"] = by_path[name]
+        if name + "_olmoe" in olmoe_rows:
             # the same kernel at olmoe-1b-7b's serving shape (GQA group 1)
             orow = olmoe_rows[name + "_olmoe"]
             kernels[-1]["olmoe"] = {key: orow[key] for key in (

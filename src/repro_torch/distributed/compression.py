@@ -1,12 +1,16 @@
-"""int8 quantization of KV blocks for the compressed KV handoff.
+"""int8 quantization: the compressed KV handoff and gradient compression
+with error feedback.
 
 The disaggregated prefill -> decode handoff ships each gathered block as
 an int8 payload plus one float32 scale per (block, head) instead of the
-full-width block (docs/architecture.md ADR-009).  Rounding is half to even
-(``torch.round``), scales are ``amax / 127 + 1e-12`` in float32 and the
-payload is clipped to +-127, so an all-zero block maps to exact zeros.
-The gradient half of the reference module (error-feedback all-reduce)
-belongs to the training slice (ROADMAP Queue 1 item 9).
+full-width block (docs/architecture.md ADR-009).  Gradients quantize per
+tensor (:func:`quantize_int8`), carrying the rounding error into the next
+step (:func:`init_error_feedback` starts the residuals).  Rounding is half
+to even (``torch.round``), scales are ``amax / 127 + 1e-12`` in float32
+and the payload is clipped to +-127, so an all-zero block maps to exact
+zeros.  The reference's error-feedback all-reduce over a data axis
+(``compressed_psum``, ``tree_compressed_pmean``) waits for the port's
+mesh (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -24,6 +28,14 @@ def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def init_error_feedback(params):
+    """Zero float32 residuals beside every parameter of a nested dict."""
+    if isinstance(params, dict):
+        return {k: init_error_feedback(v) for k, v in params.items()}
+    return torch.zeros(params.shape, dtype=torch.float32,
+                       device=params.device)
 
 
 def kv_quant_axes(ndim: int) -> Tuple[int, ...]:

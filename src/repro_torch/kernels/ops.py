@@ -11,6 +11,12 @@ or pads on the card.  The int8 KV pair (:func:`quantize_kv_blocks`,
 :func:`dequantize_kv_blocks`) is plain torch on every device: its reference
 is plain ``jnp``, not a Pallas kernel.
 
+No kernel has a backward pass, nor has any of the reference's Pallas
+kernels: every wrapper raises when autograd would record through it (grad
+enabled and an input that requires it), on the card and on the CPU alike,
+so no gradient passes through a plain version behind a kernel's back.
+Training runs ``impl="torch"``, as the reference trains on ``impl="xla"``.
+
 ``launches`` counts, per kernel, the launches made through these wrappers
 (one per call that reached the card); :func:`reset_launches` zeroes it.
 ``last_plan`` holds the plan of flash_attention's (:class:`FlashPlan`),
@@ -94,6 +100,17 @@ last_plan = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def _no_grad_through(name: str, *tensors) -> None:
+    """Raise when autograd would record through kernel ``name``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a gradient was asked for through the hand-written "
+            "kernel; neither this package nor the reference has a backward "
+            "kernel: train with impl='torch', as the reference trains on "
+            "impl='xla'")
 
 
 def _smem_bytes(rows: int, keys: int, d: int) -> int:
@@ -229,6 +246,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     :func:`paged_decode_plan`, recorded in ``last_plan``.
     """
     name = "paged_decode"
+    _no_grad_through(name, q, k_pool, v_pool)
     b, one, hq, d = q.shape
     n, bs, hkv, dk = k_pool.shape
     if (one != 1 or dk != d or v_pool.shape != k_pool.shape or hq % hkv
@@ -361,6 +379,7 @@ def paged_prefill(q, k_pool, v_pool, block_tables, pos0, n_live, *,
     :func:`paged_prefill_plan`, recorded in ``last_plan``.
     """
     name = "paged_prefill"
+    _no_grad_through(name, q, k_pool, v_pool)
     b, c, hq, d = q.shape
     n, bs, hkv, dk = k_pool.shape
     if (dk != d or v_pool.shape != k_pool.shape or hq % hkv
@@ -480,6 +499,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     window: key t > s - window).
     """
     name = "flash_attention"
+    _no_grad_through(name, q, k, v)
     b, s, hq, d = q.shape
     _, t, hkv, dk = k.shape
     if (dk != d or v.shape != k.shape or k.shape[0] != b or hq % hkv):
@@ -592,6 +612,7 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     :func:`rwkv6_scan_plan`, recorded in ``last_plan``.
     """
     name = "rwkv6_scan"
+    _no_grad_through(name, r, k, v, w, u, s0)
     b, s, h, n = r.shape
     if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
             or tuple(u.shape) != (h, n)
@@ -652,6 +673,7 @@ def rglru_scan(a, b, h0=None, out_dtype=None):
     float32).
     """
     name = "rglru_scan"
+    _no_grad_through(name, a, b, h0)
     if a.ndim != 3 or b.shape != a.shape or (
             h0 is not None and tuple(h0.shape) != (a.shape[0], a.shape[2])):
         raise ValueError(f"{name}: bad shapes a{tuple(a.shape)} "

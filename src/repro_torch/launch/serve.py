@@ -92,7 +92,7 @@ from repro_torch.core.venues import (LINKS, Venue, kv_block_bytes,
                                      pytree_bytes, transfer_time)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
-from repro_torch.models import blocks, model
+from repro_torch.models import model
 from repro_torch.models.context import RunContext
 
 
@@ -137,8 +137,8 @@ class LMBackend:
     without it parameters are drawn from a ``torch.Generator`` seeded 0.
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``impl`` defaults to the CUDA kernels on a card and the plain path
-    elsewhere.  Configurations with a modality frontend raise
-    ``NotImplementedError``.  A mixture-of-experts model is served at
+    elsewhere.  A configuration with a modality frontend is served on its
+    text path, as in the reference.  A mixture-of-experts model is served at
     capacity factor ``n_experts / top_k``, where no token is dropped
     (``ctx.moe_capacity_factor``; 1.25 for dense models, which ignore it).
 
@@ -153,7 +153,6 @@ class LMBackend:
                  params: Optional[Dict] = None, device=None,
                  impl: Optional[str] = None, draft=None,
                  draft_params: Optional[Dict] = None):
-        blocks.check_supported(cfg)
         self.cfg = cfg
         self.capacity = capacity
         self.ctx = RunContext.on(device, impl, _capacity_factor(cfg))
@@ -174,7 +173,6 @@ class LMBackend:
                     "draft model must share the target's vocab "
                     f"({draft.vocab_size} != {cfg.vocab_size}): acceptance "
                     "compares token ids directly")
-            blocks.check_supported(draft)
             if draft_params is None:
                 gen = torch.Generator(device=self.device).manual_seed(7)
                 draft_params = model.init(draft, gen, self.device)

@@ -1,10 +1,10 @@
 """Residual blocks: attention (+ paged, contiguous or ring KV), RG-LRU or
 RWKV-6, each with norm + feed-forward.
 
-This covers the dense attention family (full or sliding-window) with a
-dense or mixture-of-experts feed-forward (``models/moe.py``), RWKV-6 and
-the RG-LRU hybrid.  Modality frontends raise ``NotImplementedError``
-naming their ROADMAP item.
+This covers the dense attention family (full or sliding-window, causal,
+bidirectional or prefix-LM) with a dense or mixture-of-experts
+feed-forward (``models/moe.py``), RWKV-6 and the RG-LRU hybrid.  Mode
+``"train"`` runs the prefill math and writes no cache.
 
 KV caches are updated **in place**: every write is a function of the
 step's inputs only (positions, block tables, the tokens' K/V), and
@@ -25,13 +25,6 @@ from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import apply_norm, apply_rope, attention_xla, mlp
 from repro_torch.models.spec import ParamSpec
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations later slices of the port cover."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: modality frontends are "
-                                  "ported later (ROADMAP Queue 1 item 8)")
 
 
 # --------------------------------------------------------------------------- #
@@ -71,7 +64,6 @@ def attn_specs(cfg: ModelConfig):
 
 
 def block_specs(cfg: ModelConfig, kind: str):
-    check_supported(cfg)
     sp = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg)}
     if kind == "attn":
         sp["attn"] = attn_specs(cfg)
@@ -110,7 +102,7 @@ def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                ctx: RunContext, rope, cache: Optional[dict], mode: str,
-               pos, cache_capacity: int = 0,
+               prefix_len: int, pos, cache_capacity: int = 0,
                block_tables: Optional[torch.Tensor] = None,
                block_size: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
     cos, sin = rope
@@ -206,12 +198,14 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                 softcap=softcap, q_offset=pos0)
         new_cache = cache
     else:
-        if use_kernels:
-            out = ops.flash_attention(q, k, v, causal=cfg.causal,
+        # prefill and train: the whole sequence at once; the kernel takes
+        # causal attention without an image prefix, as in the reference
+        if use_kernels and cfg.causal and prefix_len == 0:
+            out = ops.flash_attention(q, k, v, causal=True,
                                       window=cfg.window, softcap=softcap)
         else:
             out = attention_xla(q, k, v, causal=cfg.causal, window=cfg.window,
-                                softcap=softcap)
+                                prefix_len=prefix_len, softcap=softcap)
         if mode == "prefill":
             new_cache = _prefill_cache(k, v, cfg, cache_capacity)
     b, s = out.shape[:2]
@@ -250,15 +244,16 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------------- #
 def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                 ctx: RunContext, rope, cache: Optional[dict], mode: str,
-                pos, cache_capacity: int = 0,
+                prefix_len: int, pos, cache_capacity: int = 0,
                 block_tables=None, block_size: int = 0):
-    """Returns (x, new_cache).  Entry points reject unported kinds
-    (``check_supported``) before any block runs."""
+    """Returns (x, new_cache, aux_loss): the aux loss is the MoE router's
+    load-balance term (a float32 zero for every other block)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(x, params["norm1"], cfg.norm_type)
     if kind == "attn":
         mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
-                                    mode, pos, cache_capacity, block_tables,
-                                    block_size)
+                                    mode, prefix_len, pos, cache_capacity,
+                                    block_tables, block_size)
     elif kind == "rglru":
         mix, new_cache = rglru.rglru_block_apply(params["rec"], h, cfg, ctx,
                                                  cache, mode)
@@ -277,10 +272,10 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
         new_cache = ({"tm": tm_cache, "cm": cm_cache}
                      if tm_cache is not None else None)
     elif kind == "attn" and cfg.is_moe:
-        ffn, _ = moe.moe_apply(params["ffn"], h2, cfg, ctx)  # aux: training
+        ffn, aux = moe.moe_apply(params["ffn"], h2, cfg, ctx)
     else:
         ffn = mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
-    return x + ffn, new_cache
+    return x + ffn, new_cache, aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int,

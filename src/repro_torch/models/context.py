@@ -7,6 +7,7 @@ from typing import Optional, Union
 import torch
 
 IMPLS = ("torch", "cuda")
+REMATS = ("none", "dots", "full")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -34,17 +35,28 @@ class RunContext:
     kv-head)) over the per-query-head grid kept as the A/B baseline.
     ``moe_capacity_factor`` sizes each expert's buffer in
     ``models/moe.py`` (serving passes ``n_experts / top_k``: no token is
-    dropped).  There is no mesh: the port runs on one device.
+    dropped; training keeps 1.25).  Training reads the rest: ``remat``
+    recomputes each layer group in the backward pass (``"full"``), keeps
+    its matmul outputs (``"dots"``) or stores everything (``"none"``);
+    ``loss_chunk`` evaluates the cross-entropy that many positions at a
+    time (0: at once); ``microbatches`` splits a train step's batch for
+    gradient accumulation.  There is no mesh: the port runs on one device.
     """
 
     device: torch.device
     impl: str
     paged_fused: bool = True
     moe_capacity_factor: float = 1.25
+    remat: str = "full"
+    loss_chunk: int = 0
+    microbatches: int = 1
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}: {self.impl!r}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}: "
+                             f"{self.remat!r}")
 
     @classmethod
     def on(cls, device: Optional[Union[str, torch.device]] = None,

@@ -76,14 +76,24 @@ _ACTS = {
 }
 
 
+def _out_dtype_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``aten::mm.dtype`` / ``bmm.dtype`` can take two operands:
+    bf16 on the card, and no gradient recorded (the overloads have no
+    derivative; the upcast products they stand for are the same)."""
+    return (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad)))
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for a 2-D ``w``, accumulated and returned in float32 and
     not rounded to the operands' dtype: the reference's ``einsum(...,
     preferred_element_type=jnp.float32)``.  Two bf16 operands on the card
     take one ``aten::mm.dtype`` (reads bf16, writes float32, copies no
-    weight); elsewhere (the CPU has no kernel for it, or an operand is
-    float32) both are upcast, which leaves a float32 product as it was."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+    weight) unless autograd records the product; elsewhere (the CPU has
+    no kernel for it, an operand is float32, or training) both are
+    upcast, which leaves a float32 product as it was."""
+    if _out_dtype_ok(x, w):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
@@ -94,8 +104,9 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32, not rounded to the operands' dtype (the reference's expert
     ``einsum(..., preferred_element_type=jnp.float32)``).  Two bf16
     operands on the card take one ``aten::bmm.dtype`` (no float32 copy of
-    an expert weight); elsewhere both are upcast."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    an expert weight) unless autograd records the product; elsewhere
+    both are upcast."""
+    if _out_dtype_ok(a, b):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -117,14 +128,19 @@ def mlp(params: dict, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
 # Attention masks + reference attention (GQA, causal / sliding window)
 # --------------------------------------------------------------------------- #
 def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-              window: Optional[int]) -> torch.Tensor:
-    """Boolean allow-mask (…, Sq, Sk) from absolute positions."""
+              window: Optional[int], prefix_len: int = 0) -> torch.Tensor:
+    """Boolean allow-mask (…, Sq, Sk) from absolute positions.  A causal
+    mask with ``prefix_len`` lets the first ``prefix_len`` positions (an
+    image prefix) see each other both ways; later positions stay causal."""
     q = q_pos[..., :, None]
     k = k_pos[..., None, :]
-    ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
-                    dtype=torch.bool, device=q.device)
     if causal:
-        ok = ok & (k <= q)
+        ok = k <= q
+        if prefix_len:
+            ok = ok | ((q < prefix_len) & (k < prefix_len))
+    else:
+        ok = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                        dtype=torch.bool, device=q.device)
     if window is not None:
         ok = ok & (k > q - window)
     # unwritten ring-buffer slots carry negative positions -> invalid
@@ -133,14 +149,16 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 
 def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  softcap: Optional[float] = None, q_offset=0,
+                  prefix_len: int = 0, softcap: Optional[float] = None,
+                  q_offset=0,
                   k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped-query attention, scores materialized in float32.
 
     q: (B, Sq, Hq, D);  k, v: (B, Sk, Hkv, D);  returns (B, Sq, Hq, D).
     ``q_offset`` is the absolute position of q[0] (an int, or a (B,) tensor
     of per-row cursors); keys sit at positions 0..Sk-1 unless ``k_pos``
-    ((Sk,) or (B, Sk)) names each key's position (ring buffers).
+    ((Sk,) or (B, Sk)) names each key's position (ring buffers);
+    ``prefix_len`` as in :func:`attn_mask`.
     Probabilities are rounded to the value dtype before the PV product, as
     the reference does.
     """
@@ -159,7 +177,8 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    mask = attn_mask(q_pos, k_pos, causal=causal, window=window)
+    mask = attn_mask(q_pos, k_pos, causal=causal, window=window,
+                     prefix_len=prefix_len)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)

@@ -1,5 +1,5 @@
-"""Unified model: specs, init, prefill forward, decode step, paged loops,
-speculative verify and draft.
+"""Unified model: specs, init, train and prefill forward, loss, decode
+step, paged loops, speculative verify and draft.
 
 Parameters are a nested dict of tensors with exactly the reference's key
 paths and shapes (``embed``, ``final_norm``, ``layers/stack/b{i}`` stacked
@@ -8,7 +8,9 @@ slice ``w[i]`` of a stacked leaf.  Each reference ``lax.scan`` becomes a
 Python loop.  Caches are trees of the same grouping: attention K/V leaves
 (contiguous ``(B, capacity, Hkv, D)`` rows or paged block pools) are
 updated in place; recurrent state leaves (no capacity axis) are replaced
-by each step.
+by each step.  Training (``forward(mode="train")``) writes no cache and
+recomputes each layer group in the backward pass (``ctx.remat``, through
+``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
@@ -29,6 +33,7 @@ from repro_torch.models.spec import (ParamSpec, init_params, map_specs,
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+_AUX_COEF = 0.01
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -47,7 +52,6 @@ def grouping(cfg: ModelConfig):
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    blocks.check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     pat, n_groups, rest = grouping(cfg)
     sp: Dict = {
@@ -63,6 +67,8 @@ def param_specs(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         sp["head"] = ParamSpec((d, v), ("embed", "vocab"))
+    if cfg.frontend is not None:
+        sp["frontend"] = {"proj": ParamSpec((d, d), ("embed", "embed_out"))}
     if cfg.dtype != "bfloat16":
         target = dtype_of(cfg)
         sp = map_specs(lambda s: dataclasses.replace(s, dtype=target)
@@ -99,22 +105,23 @@ def layers(cfg: ModelConfig, params: Dict, cache: Optional[Dict]
     """(kind, layer params, layer cache) in depth order; stacked leaves
     are sliced per group (views: in-place cache writes reach the pool)."""
     pat, n_groups, rest = grouping(cfg)
-
-    def pick(tree, i):
-        if isinstance(tree, dict):
-            return {k: pick(v, i) for k, v in tree.items()}
-        return tree[i]
-
     for g in range(n_groups):
         for j, kind in enumerate(pat):
             key = f"b{j}"
-            yield (kind, pick(params["layers"]["stack"][key], g),
+            yield (kind, _pick(params["layers"]["stack"][key], g),
                    None if cache is None
-                   else pick(cache["stack"][key], g))
+                   else _pick(cache["stack"][key], g))
     for j, kind in enumerate(rest):
         key = f"r{j}"
         yield (kind, params["layers"]["rest"][key],
                None if cache is None else cache["rest"][key])
+
+
+def _pick(tree, i):
+    """Group ``i`` of a stacked tree (views of the stacked leaves)."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 # --------------------------------------------------------------------------- #
@@ -135,13 +142,24 @@ def _tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """``leaves`` (in :func:`_tree_leaves` order) back into the structure
+    of ``tree``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+    return build(tree)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None) -> Dict:
     """Zero contiguous decode cache, stacked to match the layer grouping:
     attention leaves (layers, batch, capacity, Hkv, D) (capacity capped at
     a sliding window), RG-LRU and RWKV state leaves (layers, batch, ...)."""
-    blocks.check_supported(cfg)
     dtype = dtype or dtype_of(cfg)
     pat, n_groups, rest = grouping(cfg)
 
@@ -249,12 +267,27 @@ def embed_tokens(cfg: ModelConfig, params: Dict,
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict):
-    """Returns (x, positions, prefix_len) for text inputs."""
-    blocks.check_supported(cfg)
-    x = embed_tokens(cfg, params, batch["tokens"])
+    """Returns (x, positions, prefix_len).  Text embeds ``tokens``; the
+    audio stub projects ``frames`` (B, S, d_model); the vision stub
+    projects ``patches`` (B, P, d_model) into a prefix of P positions
+    ahead of the embedded ``tokens`` (``prefix_len`` = P)."""
+    dtype = dtype_of(cfg)
+    if cfg.frontend == "audio":
+        x = torch.matmul(batch["frames"].to(dtype),
+                         params["frontend"]["proj"]).to(dtype)
+        prefix_len = 0
+    elif cfg.frontend == "vision":
+        patches = torch.matmul(batch["patches"].to(dtype),
+                               params["frontend"]["proj"]).to(dtype)
+        x = torch.cat([patches, embed_tokens(cfg, params, batch["tokens"])],
+                      dim=1)
+        prefix_len = patches.shape[1]
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+        prefix_len = 0
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    return x, positions, 0
+    return x, positions, prefix_len
 
 
 def unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -273,34 +306,135 @@ def unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _run_layers(cfg, params, x, ctx, rope, cache, mode, pos,
-                cache_capacity=0, block_tables=None, block_size=0):
+# --------------------------------------------------------------------------- #
+# Stack application
+# --------------------------------------------------------------------------- #
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"`` (the reference's
+    ``dots_saveable``): keep every matmul output, recompute the rest."""
+    aten = torch.ops.aten
+    if op.overloadpacket in (aten.mm, aten.bmm, aten.addmm, aten.baddbmm):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, ctx: RunContext, mode: str):
+    """``fn`` (one layer group) under activation checkpointing when a
+    training forward records gradients: ``"full"`` recomputes the whole
+    group in the backward pass, ``"dots"`` keeps its matmul outputs.  The
+    recomputation runs the same ops on the same inputs, so the gradients
+    do not depend on ``remat``."""
+    if mode != "train" or ctx.remat == "none" \
+            or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if ctx.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                ctx: RunContext, rope, cache: Optional[Dict], mode: str,
+                prefix_len: int, pos, cache_capacity: int = 0,
+                block_tables=None, block_size: int = 0):
+    """Runs all layers in depth order.  Returns (x, the per-layer caches
+    in depth order, aux): aux sums the MoE load-balance losses in
+    float32.  Each repetition of the block pattern is one group
+    (:func:`_remat_wrap` in training); layers left over after the last
+    group run on their own, unwrapped, as in the reference."""
+    pat, n_groups, rest = grouping(cfg)
     per_layer = []
-    for kind, lp, lc in layers(cfg, params, cache):
-        x, nc = blocks.block_apply(kind, lp, x, cfg, ctx, rope, lc, mode,
-                                   pos, cache_capacity, block_tables,
-                                   block_size)
+
+    def run(kind, lp, lc, x):
+        x, nc, a = blocks.block_apply(kind, lp, x, cfg, ctx, rope, lc, mode,
+                                      prefix_len, pos, cache_capacity,
+                                      block_tables, block_size)
         per_layer.append(nc)
-    return x, per_layer
+        return x, a
+
+    def group(g):
+        def body(x):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for j, kind in enumerate(pat):
+                key = f"b{j}"
+                x, a = run(kind, _pick(params["layers"]["stack"][key], g),
+                           None if cache is None
+                           else _pick(cache["stack"][key], g), x)
+                aux = aux + a
+            return x, aux
+        return _remat_wrap(body, ctx, mode)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(n_groups):
+        x, a = group(g)(x)
+        aux = aux + a
+    for j, kind in enumerate(rest):
+        key = f"r{j}"
+        x, a = run(kind, params["layers"]["rest"][key],
+                   None if cache is None else cache["rest"][key], x)
+        aux = aux + a
+    return x, per_layer, aux
+
+
+# --------------------------------------------------------------------------- #
+# Losses
+# --------------------------------------------------------------------------- #
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor], chunk: int = 0
+                  ) -> torch.Tensor:
+    """Stable cross-entropy of (B, S, V) logits against (B, S) targets in
+    float32: the mean over positions, or over ``mask``-weighted positions
+    (divided by at least 1).  ``chunk`` evaluates ``chunk`` positions at a
+    time when it divides S (the same per-position values).  The
+    vocab-sharded form waits for the port's mesh (ROADMAP Queue 1 item
+    10)."""
+    def ce(lg, tg):
+        lg = lg.float()
+        ll = torch.take_along_dim(lg, tg.long()[..., None], dim=-1)[..., 0]
+        return torch.logsumexp(lg, dim=-1) - ll
+
+    s = logits.shape[1]
+    if chunk and s % chunk == 0 and s > chunk:
+        losses = torch.cat([ce(logits[:, i:i + chunk],
+                               targets[:, i:i + chunk])
+                            for i in range(0, s, chunk)], dim=1)
+    else:
+        losses = ce(logits, targets)
+    if mask is None:
+        return losses.mean()
+    mask = mask.float()
+    return (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # --------------------------------------------------------------------------- #
 # Public entry points
 # --------------------------------------------------------------------------- #
 def forward(cfg: ModelConfig, params: Dict, batch: Dict, ctx: RunContext,
-            mode: str = "prefill", cache_capacity: int = 0):
-    """mode="prefill" -> (last_logits (B, V), cache) with a contiguous
-    cache tree (the layout of :func:`init_cache`; K/V padded to
-    ``cache_capacity``).  Training is ported later."""
-    if mode != "prefill":
-        raise NotImplementedError("training forward is ported later "
-                                  "(ROADMAP Queue 1 item 9, training)")
-    x, positions, _ = embed_inputs(cfg, params, batch)
+            mode: str = "train", cache_capacity: int = 0):
+    """mode="train" -> (total, {"loss", "aux"}): the cross-entropy against
+    ``batch["targets"]`` (over the text suffix for the vision stub,
+    weighted by ``batch["loss_mask"]`` where there is one) plus
+    ``_AUX_COEF`` times the MoE load-balance loss; no cache is written.
+    mode="prefill" -> (last_logits (B, V), cache) with a contiguous cache
+    tree (the layout of :func:`init_cache`; K/V padded to
+    ``cache_capacity``)."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward: mode must be 'train' or 'prefill', "
+                         f"got {mode!r}")
+    x, positions, prefix_len = embed_inputs(cfg, params, batch)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x, per_layer = _run_layers(cfg, params, x, ctx, rope, None, "prefill",
-                               None, cache_capacity)
-    logits = unembed(cfg, params, x[:, -1:])
-    return logits[:, 0], _stack_caches(cfg, per_layer)
+    x, per_layer, aux = apply_stack(cfg, params, x, ctx, rope, None, mode,
+                                    prefix_len, None, cache_capacity)
+    if mode == "prefill":
+        logits = unembed(cfg, params, x[:, -1:])
+        return logits[:, 0], _stack_caches(cfg, per_layer)
+    logits = unembed(cfg, params, x)
+    if cfg.frontend == "vision":
+        logits = logits[:, prefix_len:]      # loss over the text suffix only
+    loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"),
+                         ctx.loss_chunk)
+    return loss + _AUX_COEF * aux, {"loss": loss, "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
@@ -322,9 +456,10 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     else:
         positions = pos[:, None]
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x, per_layer = _run_layers(cfg, params, x, ctx, rope, cache, "decode",
-                               pos, block_tables=block_tables,
-                               block_size=block_size)
+    x, per_layer, _ = apply_stack(cfg, params, x, ctx, rope, cache,
+                                  "decode", 0, pos,
+                                  block_tables=block_tables,
+                                  block_size=block_size)
     if has_state_rows(cfg):
         cache = _stack_caches(cfg, per_layer, kv_from=cache)
     return unembed(cfg, params, x)[:, 0], cache
@@ -417,9 +552,9 @@ def chunk_step(cfg: ModelConfig, params: Dict, cache: Dict,
     positions = torch.clamp(pos0[:, None] + torch.arange(c, device=x.device),
                             max=capacity - 1)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x, _ = _run_layers(cfg, params, x, ctx, rope, cache, "chunk",
-                       (pos0, n_live), capacity, _i32(block_tables),
-                       block_size)
+    x, _, _ = apply_stack(cfg, params, x, ctx, rope, cache, "chunk", 0,
+                          (pos0, n_live), capacity, _i32(block_tables),
+                          block_size)
     idx = torch.clamp(n_live - 1, 0, c - 1).long()
     x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     return unembed(cfg, params, x_last)[:, 0], cache
@@ -529,8 +664,9 @@ def verify_window(cfg: ModelConfig, params: Dict, cache: Dict,
     positions = torch.clamp(pos0[:, None] + torch.arange(c, device=x.device),
                             max=capacity - 1)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x, _ = _run_layers(cfg, params, x, ctx, rope, cache, "chunk",
-                       (pos0, n_live), capacity, _i32(eff_tables), block_size)
+    x, _, _ = apply_stack(cfg, params, x, ctx, rope, cache, "chunk", 0,
+                          (pos0, n_live), capacity, _i32(eff_tables),
+                          block_size)
     return _i32(torch.argmax(unembed(cfg, params, x), -1)), cache
 
 

@@ -15,6 +15,12 @@ accumulated in float32, then rounded.  The combine adds each token's k
 weighted expert outputs in ascending expert id, one add at a time in the
 activation dtype, the order of the reference's scatter-add; no atomics,
 so two calls on the same inputs give the same bits.
+
+Training runs the same layer at ``ctx.moe_capacity_factor`` (1.25, the
+reference's training factor) and returns the load-balance loss; autograd
+reaches the routing weights (through the sort's values) and the expert
+products, and a dropped assignment reads the zero row, so its expert
+gradients are exact zeros.
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ another order than the kernel).  Kernel path (``impl="cuda"``): the
 hand-written scan ``ops.rglru_scan`` (``kernels/csrc/rglru_scan.cu``),
 which rounds every step as :func:`linear_scan` does, so the two paths agree
 bit for bit in these layers.  Decode runs :func:`rglru_step` in plain
-tensor ops on both paths.
+tensor ops on both paths.  Mode ``"train"`` is the prefill math without a
+cache; its gradients pass only through the plain path (the kernel refuses
+them).
 
 Block structure (Griffin, arXiv:2402.19427):
     y = W_out[ RG-LRU(conv1d(x W_x)) * gelu(x W_y) ]

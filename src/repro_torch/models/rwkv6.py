@@ -4,7 +4,9 @@ Plain path (``impl="torch"``): the chunked-parallel WKV evaluation below
 (numerically stable: all decay products are <= 1).  Kernel path
 (``impl="cuda"``): the hand-written WKV scan ``ops.rwkv6_scan``
 (``kernels/csrc/rwkv6_scan.cu``), held to :func:`wkv6_chunked_ref`.
-Decode runs :func:`wkv6_step` in plain tensor ops on both paths.
+Decode runs :func:`wkv6_step` in plain tensor ops on both paths.  Mode
+``"train"`` is the prefill math without a cache; its gradients pass only
+through the plain path (the kernel refuses them).
 
 Recurrence (per head, state S in R^{N_k x N_v}):
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)

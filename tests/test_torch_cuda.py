@@ -437,3 +437,52 @@ def test_paged_prefill_refuses_unbuilt_head_dim():
 
 def _randn(rng, shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_host():
+    """On a card: reduced smollm-360m in float32 (TF32 off), three train
+    steps on the card and on the host from the same weights and batches:
+    losses and grad norms within 1e-4 relative.  Then the train loss with
+    impl="cuda" under no_grad equals impl="torch"'s within 1e-5, and with
+    grad enabled the flash kernel refuses the gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py phase 24 runs the same comparison")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg = reduced_config(get_config("smollm-360m"))
+    params = model.init(cfg, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+    pipe = Pipeline(cfg, DataConfig(4, 32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = model.tree_map(lambda t: t.to(dev, copy=True), params)
+        step = S.build_train_step(cfg, adamw.OptConfig(), S.make_context(dev))
+        state = {"params": p, "opt": adamw.init(p)}
+        runs[dev] = []
+        for i in range(3):
+            batch = {k: v.to(dev) for k, v in pipe.batch(i).items()}
+            state, m = step(state, batch)
+            runs[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+    dev_params = model.tree_map(lambda t: t.cuda(), params)
+    batch = {k: v.cuda() for k, v in pipe.batch(0).items()}
+    ops.reset_launches()
+    with torch.no_grad():
+        got, _ = model.forward(cfg, dev_params, batch,
+                               S.make_context("cuda", impl="cuda"), "train")
+        want, _ = model.forward(cfg, dev_params, batch,
+                                S.make_context("cuda"), "train")
+    assert ops.launches["flash_attention"] == cfg.n_layers
+    assert abs(float(got) - float(want)) <= 1e-5
+    live = model.tree_map(lambda t: t.detach().requires_grad_(), dev_params)
+    with pytest.raises(RuntimeError, match="backward kernel"):
+        model.forward(cfg, live, batch, S.make_context("cuda", impl="cuda"),
+                      "train")

@@ -15,7 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "examples" / "train_smollm_torch.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")

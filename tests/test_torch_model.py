@@ -300,12 +300,13 @@ def test_supports_chunked_and_unported_paths():
     assert not tm.supports_chunked_prefill(rg)
     with pytest.raises(NotImplementedError, match="full attention"):
         tm.init_paged_cache(rg, 2, 4, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.init_paged_cache(t_reduced_config(t_get_config("paligemma-3b")),
-                            2, 4, 4)
-    with pytest.raises(NotImplementedError, match="training"):
+    # a vision-frontend model's text path pages like any full-attention one
+    pool = tm.init_paged_cache(t_reduced_config(t_get_config("paligemma-3b")),
+                               2, 4, 4)
+    assert tuple(pool["stack"]["b0"]["k"].shape[1:3]) == (4, 4)
+    with pytest.raises(ValueError, match="mode"):
         tm.forward(tcfg, _setup()["tp"], {"tokens": torch.zeros(1, 4)},
-                   _ctx("torch"), "train")
+                   _ctx("torch"), "decode")
     with pytest.raises(ValueError, match="impl"):
         RunContext(torch.device("cpu"), "pallas")
 

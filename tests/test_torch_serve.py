@@ -208,13 +208,13 @@ def test_handler_validation_errors():
 
 
 def test_lm_backend_rejects_windowed_and_recurrent_configs():
-    """Modality frontends (paligemma) are a later slice; the RG-LRU hybrid
-    with its sliding window (recurrentgemma, tests/test_torch_rglru.py)
-    and RWKV-6 (tests/test_torch_rwkv6.py) are served through
-    kv='contiguous' only."""
+    """A vision-frontend model (paligemma) binds like the reference's, its
+    frontend projection among the parameters; the RG-LRU hybrid with its
+    sliding window (recurrentgemma, tests/test_torch_rglru.py) and RWKV-6
+    (tests/test_torch_rwkv6.py) are served through kv='contiguous' only."""
     cfg = t_reduced_config(t_get_config("paligemma-3b"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tserve.LMBackend(cfg, capacity=CAP, device="cpu")
+    backend = tserve.LMBackend(cfg, capacity=CAP, device="cpu")
+    assert "proj" in backend.params["frontend"]
     cfg = t_reduced_config(t_get_config("recurrentgemma-2b"))
     backend = tserve.LMBackend(cfg, capacity=CAP, device="cpu")
     with pytest.raises(NotImplementedError, match="full attention"):

@@ -80,8 +80,8 @@ def main():
                 first = (lp, tlp, jx, tx)
             jx, _, _ = jb.block_apply("attn", lp, jx, cfg, JContext(), jrope,
                                       None, "prefill", 0, None, TOKENS)
-            tx, _ = tb.block_apply("attn", tlp, tx, tcfg, ctx, trope, None,
-                                   "prefill", None, TOKENS)
+            tx, _, _ = tb.block_apply("attn", tlp, tx, tcfg, ctx, trope,
+                                      None, "prefill", 0, None, TOKENS)
             diff(f"layer {i}", jx, tx)
         lp, tlp, jx, tx = first
         print("layer 0 attention, step by step on identical inputs:")

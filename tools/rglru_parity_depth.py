@@ -78,13 +78,13 @@ def first_layers(torch, cfg, params, toks):
     rope = rope_tables(torch.arange(s, device=toks.device).expand(
         toks.shape[0], s), cfg.head_dim, cfg.rope_theta)
     for j in range(2):
-        x, _ = blocks.block_apply("rglru", lp[j], x, cfg, plain, rope, None,
-                                  "forward", None)
-    yk, _ = blocks.block_apply("attn", lp[2], x, cfg,
-                               RunContext(toks.device, "cuda"), rope, None,
-                               "forward", None)
-    yp, _ = blocks.block_apply("attn", lp[2], x, cfg, plain, rope, None,
-                               "forward", None)
+        x, _, _ = blocks.block_apply("rglru", lp[j], x, cfg, plain, rope,
+                                     None, "train", 0, None)
+    yk, _, _ = blocks.block_apply("attn", lp[2], x, cfg,
+                                  RunContext(toks.device, "cuda"), rope,
+                                  None, "train", 0, None)
+    yp, _, _ = blocks.block_apply("attn", lp[2], x, cfg, plain, rope, None,
+                                  "train", 0, None)
     print(f"layer 2 attention block output (relative): flash kernel vs "
           f"plain {rel(yk, yp):.3e}", flush=True)
 
