@@ -212,7 +212,37 @@ prefix-LM).  Phases:
               paligemma in float32 on 2 layers: moving the last patch
               changes the first patch's logits (the prefix sees itself
               both ways), moving the last text token changes no earlier
-              position.
+              position;
+26. mesh    — on a one-rank NCCL group (an in-process store) and
+              ``make_local_mesh()``: (a) smollm-360m at full width and
+              depth in bfloat16, one train step through the mesh path
+              (DTensor state on the ``tp`` profile) against the mesh-free
+              step on copies of the same state and batch (MESH_BATCH x
+              MESH_SEQ), losses, grad norms and step times printed; then in
+              float32 on MESH_PARITY_LAYERS layers, loss and grad norm
+              within MESH_RTOL; (b) olmoe-1b-7b at full width and depth in
+              bfloat16: prefill logits on the ``serve`` profile (the
+              d_model-sliced expert contraction) and the train-mode loss
+              without a gradient on ``tp`` (the expert-parallel body with
+              FSDP gathers) against the mesh-free path, printed; in
+              float32 on MESH_PARITY_LAYERS layers within MESH_RTOL; (c)
+              ``compressed_psum`` over the one-rank data group on every
+              gradient leaf of (a) against the int8 formula written out
+              (one data rank: no collective runs; tools/mesh_nccl_check.py
+              runs the compressed mean over NCCL on 4 cards), and
+              ``FleetTrainer(mesh=..., grad_compression=True)`` for
+              MESH_FLEET_STEPS steps (one data rank: uncompressed, as the
+              reference); (d) ``hlo_analysis.cost_metrics`` of (a)'s step
+              on the card against the same step traced on fake tensors
+              under a fake one-rank group: FLOPs equal exactly; the traced
+              peak beside ``torch.cuda.max_memory_allocated``;
+27. dryrun  — on the host, one subprocess per cell, all started together:
+              ``python -m repro_torch.launch.dryrun`` for DRYRUN_CELLS (a
+              fake group of 256 or 512 ranks, fake tensors); each record
+              read back: status ok, and the k = 1 / k = 2 extrapolation
+              equal to the full-depth FLOPs, bytes and collective bytes;
+              then the roofline table against H100 constants (estimates
+              from counting, not measurements).
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -269,7 +299,7 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 25
+PHASES = 27
 # phase 18: the ServingEngine placements and the escalation engine's
 # capacity (its bf16 cache is past the clone types' 100 MiB heap)
 PLACEMENTS = {"local": dict(force="local"), "remote": dict(force="remote"),
@@ -316,6 +346,19 @@ KERNEL_LOSS_TOL = 1e-4
 FRONTEND_STEPS = 3
 HUBERT_SHAPE = (4, 256)
 PALIGEMMA_SHAPE = (2, 320)
+# phase 26: the mesh path on one card (a 1 x 1 mesh)
+MESH_BATCH, MESH_SEQ = 8, 256
+MESH_PARITY_LAYERS = 4
+MESH_RTOL = 1e-5
+MESH_MOE_SHAPE = (4, 128)
+MESH_FLEET_STEPS = 4
+# phase 27: where the dry-run records go, and its (arch, shape,
+# multi-pod) cells
+DRYRUN_DIR = ROOT / "benchmarks" / "results" / "dryrun_torch"
+DRYRUN_CELLS = (("smollm-360m", "train_4k", False),
+                ("qwen2.5-3b", "prefill_32k", False),
+                ("olmoe-1b-7b", "decode_32k", True),
+                ("rwkv6-7b", "long_500k", False))
 
 
 def fail(msg):
@@ -2609,6 +2652,291 @@ def frontend_phase(torch):
 
 
 
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mesh_train_pair(torch, cfg, mesh, times=None):
+    """One train step of ``cfg`` (seed 0, pipeline batch 0) mesh-free and
+    on ``mesh`` from copies of one state.  Returns (plain metrics, mesh
+    metrics, mesh step, mesh state after the step, batch on the mesh)."""
+    import copy
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda")
+    opt = adamw.OptConfig(warmup_steps=TRAIN_WARMUP)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    pp = shd.distribute_tree(copy.deepcopy(params),
+                             S.param_shardings(cfg, mesh), mesh)
+    batch = device_batch(Pipeline(cfg, DataConfig(MESH_BATCH, MESH_SEQ))
+                         .batch(0))
+    specs = shd.input_shardings(batch, mesh, MESH_BATCH)
+    bd = {k: shd.distribute(v, shd.placements(specs[k], mesh), mesh)
+          for k, v in batch.items()}
+    plain = S.build_train_step(cfg, opt, S.make_context("cuda"))
+    step = S.build_train_step(cfg, opt, S.make_context(mesh=mesh))
+    state0 = {"params": params, "opt": adamw.init(params)}
+    state1 = {"params": pp, "opt": adamw.init(pp)}
+    if times is not None:
+        plain = timed_steps(torch, plain, times.setdefault("plain", []))
+        step = timed_steps(torch, step, times.setdefault("mesh", []))
+    _, m0 = plain(state0, batch)
+    del state0, params
+    state1, m1 = step(state1, bd)
+    return m0, m1, step, state1, bd
+
+
+def mesh_phase(torch, cfg, ocfg):
+    """Phase 26 (see the module docstring)."""
+    import gc
+    import logging
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, hlo_analysis as H
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import FleetTrainer
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import model
+    from repro_torch.models.context import RunContext
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = make_local_mesh()
+        # (a) smollm-360m whole, bf16
+        times = {}
+        torch.cuda.reset_peak_memory_stats()
+        m0, m1, step, state, bd = mesh_train_pair(torch, cfg, mesh, times)
+        l0, l1 = float(m0["loss"]), float(m1["loss"])
+        g0, g1 = float(m0["grad_norm"]), float(m1["grad_norm"])
+        log(f"  (a) smollm-360m bf16, {cfg.n_layers} layers, "
+            f"{MESH_BATCH} x {MESH_SEQ}: loss mesh {l1!r} / plain {l0!r}; "
+            f"grad norm mesh {g1!r} / plain {g0!r}; step "
+            f"{1e3 * times['mesh'][0]:.1f} ms mesh (first, DTensor "
+            f"propagation cold) / {1e3 * times['plain'][0]:.1f} ms plain")
+        check_losses("mesh (a)", [l0, l1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, _ = step(state, bd)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        peak_real = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        (state, _), rec = H.trace(step, state, bd)
+        torch.cuda.synchronize()
+        real_cost = H.cost_metrics(rec)
+        real_mem = H.memory_metrics(rec)
+        out["mesh_step_ms"] = 1e3 * warm
+        log(f"  (a) second mesh step {1e3 * warm:.1f} ms; device memory "
+            f"above the state {peak_real / 1e9:.3f} GB "
+            f"(torch.cuda.max_memory_allocated)")
+        del state, bd, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg4 = dataclasses.replace(cfg, n_layers=MESH_PARITY_LAYERS,
+                                   dtype="float32")
+        m0, m1, *_ = mesh_train_pair(torch, cfg4, mesh)
+        l0, l1 = float(m0["loss"]), float(m1["loss"])
+        g0, g1 = float(m0["grad_norm"]), float(m1["grad_norm"])
+        log(f"  (a) float32, {MESH_PARITY_LAYERS} layers: loss {l1!r} / "
+            f"{l0!r} (rel {_rel(l1, l0):.2e}); grad norm {g1!r} / {g0!r} "
+            f"(rel {_rel(g1, g0):.2e})")
+        if _rel(l1, l0) > MESH_RTOL or _rel(g1, g0) > MESH_RTOL:
+            fail("mesh (a): float32 train step off the mesh-free step")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) olmoe-1b-7b whole, bf16; then float32 on a few layers
+        for ocfg_b, gate in ((ocfg, False),
+                             (dataclasses.replace(
+                                 ocfg, n_layers=MESH_PARITY_LAYERS,
+                                 dtype="float32"), True)):
+            capf = ocfg_b.n_experts / ocfg_b.top_k
+            params = model.init(ocfg_b,
+                                torch.Generator(device=dev).manual_seed(0),
+                                dev)
+            b, s = MESH_MOE_SHAPE
+            toks = torch.randint(0, ocfg_b.vocab_size, (b, s + 1),
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(1), device=dev,
+                                 dtype=torch.int32)
+            batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+            specs = shd.input_shardings(batch, mesh, b)
+            bd = {k: shd.distribute(v, shd.placements(specs[k], mesh), mesh)
+                  for k, v in batch.items()}
+            plain = RunContext(dev, "torch", moe_capacity_factor=capf)
+            row = {}
+            with torch.no_grad():
+                want, _ = model.forward(ocfg_b, params, batch, plain,
+                                        "prefill")
+                for prof in ("serve", "tp"):
+                    ctx = S.make_context(mesh=mesh, sharding_profile=prof,
+                                         moe_capacity_factor=capf)
+                    pp = shd.distribute_tree(
+                        params, S.param_shardings(ocfg_b, mesh, prof), mesh)
+                    if prof == "serve":
+                        got, _ = model.forward(ocfg_b, pp, bd, ctx,
+                                               "prefill")
+                        got = got.full_tensor()
+                        row["prefill"] = float(
+                            (got.float() - want.float()).abs().max()
+                            / want.float().abs().max())
+                    else:
+                        lw, _ = model.forward(ocfg_b, params, batch, plain,
+                                              "train")
+                        lg, _ = model.forward(ocfg_b, pp, bd, ctx, "train")
+                        row["loss"] = (float(lg.full_tensor()), float(lw))
+                    del pp
+            log(f"  (b) olmoe-1b-7b {ocfg_b.dtype}, {ocfg_b.n_layers} "
+                f"layers, {b} x {s}: serve-profile prefill logits rel max "
+                f"diff {row['prefill']:.3e}; tp train loss (no grad) mesh "
+                f"{row['loss'][0]!r} / plain {row['loss'][1]!r} (rel "
+                f"{_rel(*row['loss']):.2e})")
+            if gate and (row["prefill"] > MESH_RTOL
+                         or _rel(*row["loss"]) > MESH_RTOL):
+                fail("mesh (b): float32 olmoe off the mesh-free path")
+            del params, want
+            gc.collect()
+            torch.cuda.empty_cache()
+        # (c) compressed_psum on every gradient leaf of (a); FleetTrainer
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        from repro_torch.data.pipeline import Pipeline
+        batch = device_batch(Pipeline(cfg, DataConfig(MESH_BATCH, MESH_SEQ))
+                             .batch(0))
+        live = model.tree_map(lambda p: p.detach().requires_grad_(), params)
+        total, _ = model.forward(cfg, live, batch, S.make_context("cuda"),
+                                 "train")
+        grads = torch.autograd.grad(total, model._tree_leaves(live))
+        del live, total
+        worst = 0.0
+        gen = torch.Generator(device=dev).manual_seed(2)
+        for g in grads:
+            r = torch.randn(g.shape, generator=gen, device=dev) * 1e-3
+            mean, resid = compression.compressed_psum(g, r, "data",
+                                                      mesh=mesh)
+            # the int8 round trip written out: per-tensor scale
+            # max|v| / 127, rounded and clamped codes, one rank's mean
+            v = g.float() + r
+            scale = v.abs().max() / 127.0 + 1e-12
+            want = torch.clamp(torch.round(v / scale), -127, 127) * scale
+            worst = max(worst, float((mean - want).abs().max()
+                                     / want.abs().max().clamp(min=1e-30)),
+                        float((resid - (v - want)).abs().max()
+                              / want.abs().max().clamp(min=1e-30)))
+        log(f"  (c) compressed_psum on {len(grads)} gradient leaves over "
+            f"the one-rank data group (no collective runs on one card: "
+            f"the int8 round trip and the residual only): max |diff| from "
+            f"the formula, relative to the leaf's largest value, {worst!r}")
+        if worst > 1e-6:
+            fail("mesh (c): compressed_psum off its formula")
+        del grads, params
+        tr = FleetTrainer(cfg, steps_total=MESH_FLEET_STEPS,
+                          data_cfg=DataConfig(MESH_BATCH, MESH_SEQ),
+                          grad_compression=True, mesh=mesh)
+        tr.run()
+        check_losses("mesh fleet", tr.report.losses)
+        if tr._compressed:
+            fail("mesh (c): one data rank must train uncompressed")
+        log(f"  (c) FleetTrainer(mesh 1x1, grad_compression=True): "
+            f"uncompressed on one data rank, losses "
+            f"{[round(x, 4) for x in tr.report.losses]}")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # (d) the same step traced on fake tensors under a fake one-rank group
+    fake = dryrun.fake_world(1, device_type="cuda")
+    try:
+        shape = ShapeConfig("mesh", "train", MESH_SEQ, MESH_BATCH)
+        rec, _ = dryrun.lower_cell(cfg, shape, fake,
+                                   S.make_context(mesh=fake))
+    finally:
+        dist.destroy_process_group()
+    fake_cost = H.cost_metrics(rec)
+    fake_mem = H.memory_metrics(rec)
+    above = real_mem["peak_bytes"] - real_mem["argument_bytes"]
+    log(f"  (d) FLOPs card {real_cost['flops']!r} / fake trace "
+        f"{fake_cost['flops']!r}; bytes accessed "
+        f"{real_cost['bytes_accessed']!r} / {fake_cost['bytes_accessed']!r};"
+        f" traced peak card {real_mem['peak_bytes'] / 1e9:.3f} GB / fake "
+        f"{fake_mem['peak_bytes'] / 1e9:.3f} GB ({above / 1e9:.3f} GB "
+        f"above the {real_mem['argument_bytes'] / 1e9:.3f} GB of "
+        f"arguments) beside torch.cuda.max_memory_allocated "
+        f"{peak_real / 1e9:.3f} GB above the state; fake trace "
+        f"{rec.seconds:.2f} s")
+    if real_cost["flops"] != fake_cost["flops"]:
+        fail("mesh (d): FLOPs of the card's step and the fake trace differ")
+    out.update(flops=real_cost["flops"], peak_traced=real_mem["peak_bytes"],
+               peak_real=peak_real)
+    return out
+
+
+def dryrun_phase():
+    """Phase 27: the dry-run CLI for DRYRUN_CELLS, one subprocess each, all
+    started together, then the roofline table."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mp in DRYRUN_CELLS:
+        cell = f"{arch}__{shape}__{'2x16x16' if mp else '16x16'}"
+        (DRYRUN_DIR / f"{cell}.json").unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(DRYRUN_DIR)] + (
+                   ["--multi-pod"] if mp else [])
+        procs.append(((arch, shape, mp), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    bad = []
+    for (arch, shape, mp), p in procs:
+        cell = f"{arch}__{shape}__{'2x16x16' if mp else '16x16'}"
+        try:
+            text = p.communicate(timeout=900)[0]
+        except subprocess.TimeoutExpired:
+            for _, q in procs:
+                q.kill()
+            fail(f"dryrun {cell}: timed out")
+        for line in text.splitlines():
+            if line.startswith("[") or "corrected" in line:
+                log(f"  {line}")
+        if p.returncode != 0:
+            bad.append((cell, text[-2000:]))
+            continue
+        # the CLI records a failed k = 1 / k = 2 pass and exits 0: read the
+        # record, and hold the extrapolation to the full-depth counts
+        rec = json.loads((DRYRUN_DIR / f"{cell}.json").read_text())
+        corr = rec.get("corrected", {})
+        full = (rec.get("cost_reported", {}).get("flops"),
+                rec.get("cost_reported", {}).get("bytes_accessed"),
+                rec.get("collectives_reported", {}).get("total"))
+        got = (corr.get("flops"), corr.get("bytes_accessed"),
+               corr.get("collective_bytes"))
+        if rec.get("status") != "ok" or "error" in corr or got != full:
+            bad.append((cell, {"status": rec.get("status"),
+                               "corrected": corr, "full_depth": full}))
+    if bad:
+        fail(f"dryrun: {bad}")
+    log(f"  k = 1 / k = 2 extrapolation equal to the full-depth FLOPs, "
+        f"bytes and collective bytes in all {len(procs)} records")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import roofline
+    log("  roofline (H100 SXM constants; estimates from counting):")
+    for line in roofline.table().splitlines():
+        log(f"  {line}")
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -2852,6 +3180,22 @@ def main():
     frontend_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+
+    log(f"[26/{PHASES} mesh] one-rank NCCL group, 1 x 1 mesh: smollm-360m "
+        "train step and olmoe-1b-7b prefill / train loss through the mesh "
+        "path vs mesh-free; compressed_psum; FleetTrainer(mesh); FLOPs card "
+        "vs fake trace")
+    t26 = time.perf_counter()
+    mesh_phase(torch, cfg, ocfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 26 {time.perf_counter() - t26:.1f} s")
+
+    log(f"[27/{PHASES} dryrun] {len(DRYRUN_CELLS)} cells on a fake 256 / "
+        "512-rank group, then the roofline")
+    t27 = time.perf_counter()
+    dryrun_phase()
+    log(f"  phase 27 {time.perf_counter() - t27:.1f} s")
 
     # launches per serving path, each counted from 0 over its own run
     # (spec: both drafts' runs; disagg: both handoff runs; chaos: the five

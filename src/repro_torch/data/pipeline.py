@@ -65,3 +65,21 @@ class Pipeline:
                     "targets": toks[:, 1:]}
         toks = tokens(s + 1)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def abstract_batch(self) -> Dict[str, torch.Tensor]:
+        """Meta tensors with :meth:`batch`'s keys, shapes and dtypes."""
+        cfg, d = self.cfg, self.dcfg
+        b, s = d.global_batch, d.seq_len
+
+        def meta(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if cfg.frontend == "audio":
+            return {"frames": meta(b, s, cfg.d_model, dtype=torch.float32),
+                    "targets": meta(b, s),
+                    "loss_mask": meta(b, s, dtype=torch.float32)}
+        if cfg.frontend == "vision":
+            p = cfg.n_patches
+            return {"patches": meta(b, p, cfg.d_model, dtype=torch.float32),
+                    "tokens": meta(b, s - p), "targets": meta(b, s - p)}
+        return {"tokens": meta(b, s), "targets": meta(b, s)}

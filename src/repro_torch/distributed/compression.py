@@ -8,9 +8,10 @@ tensor (:func:`quantize_int8`), carrying the rounding error into the next
 step (:func:`init_error_feedback` starts the residuals).  Rounding is half
 to even (``torch.round``), scales are ``amax / 127 + 1e-12`` in float32
 and the payload is clipped to +-127, so an all-zero block maps to exact
-zeros.  The reference's error-feedback all-reduce over a data axis
-(``compressed_psum``, ``tree_compressed_pmean``) waits for the port's
-mesh (ROADMAP Queue 1 item 10).
+zeros.  :func:`compressed_psum` is the error-feedback all-reduce over a
+mesh axis that the data-parallel trainer runs on local tensors (inside
+``local_map``): an int8 all-gather plus a gather of the float32 scales,
+summed dequantized and divided by the number of ranks.
 """
 from __future__ import annotations
 
@@ -34,8 +35,7 @@ def init_error_feedback(params):
     """Zero float32 residuals beside every parameter of a nested dict."""
     if isinstance(params, dict):
         return {k: init_error_feedback(v) for k, v in params.items()}
-    return torch.zeros(params.shape, dtype=torch.float32,
-                       device=params.device)
+    return torch.zeros_like(params, dtype=torch.float32)
 
 
 def kv_quant_axes(ndim: int) -> Tuple[int, ...]:
@@ -64,3 +64,32 @@ def dequantize_kv_blocks(q: torch.Tensor, scale: torch.Tensor,
                          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Inverse of :func:`quantize_kv_blocks`, cast to the pool dtype."""
     return (q.float() * scale).to(dtype)
+
+
+def compressed_psum(g: torch.Tensor, residual: torch.Tensor, axis_name: str,
+                    *, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 mean over ``axis_name`` of ``mesh``.
+
+    Wire bytes: 1 per element (the int8 all-gather) + 4 per rank (the
+    scales), against 4 per element for the float32 all-reduce it
+    replaces.  Returns (the mean of the ranks' dequantized values, this
+    rank's new residual)."""
+    from repro_torch.distributed.sharding import _all_gather
+    v = g.float() + residual
+    q, scale = quantize_int8(v)
+    new_residual = v - dequantize_int8(q, scale)
+    qs = _all_gather(q[None], mesh, axis_name, 0)              # (k, ...)
+    scales = _all_gather(scale.reshape(1), mesh, axis_name, 0)  # (k,)
+    summed = torch.tensordot(scales, qs.float(), dims=([0], [0]))
+    return summed / qs.shape[0], new_residual
+
+
+def tree_compressed_pmean(grads, residuals, axis_name: str, *, mesh):
+    """:func:`compressed_psum` over every leaf of a nested dict: (means,
+    residuals), each of the input's structure."""
+    if isinstance(grads, dict):
+        out = {k: tree_compressed_pmean(grads[k], residuals[k], axis_name,
+                                        mesh=mesh) for k in grads}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()})
+    return compressed_psum(grads, residuals, axis_name, mesh=mesh)

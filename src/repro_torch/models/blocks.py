@@ -11,19 +11,34 @@ step's inputs only (positions, block tables, the tokens' K/V), and
 attention always writes before it reads, so re-running a step on the same
 inputs leaves the same cache — the serving executors rely on that.
 Recurrent state is replaced, never written in place, for the same reason.
+
+With ``ctx.mesh`` set, :func:`block_apply` takes DTensors and runs the
+block under one ``local_map`` (:func:`_block_sharded`): every parameter
+enters at the placements its use needs (FSDP shards gathered over the data
+axes, tensor-parallel shards kept or resharded on the model axis) and the
+body runs on local tensors with explicit collectives, Megatron style:
+``copy_to`` where a tensor replicated over the model axis enters sharded
+work, ``reduce_from`` where partial sums leave it.  A :class:`MeshPlan`
+tells the body's functions (:func:`attn_apply`, :func:`_mlp_sharded`,
+``moe.moe_apply``) how their inputs are laid out.  Train, prefill and
+contiguous decode run on a mesh; the paged and chunk modes do not.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models.context import RunContext
-from repro_torch.models.layers import apply_norm, apply_rope, attention_xla, mlp
+from repro_torch.models.layers import (_Q_CHUNK, NEG_INF, apply_norm,
+                                       apply_rope, attention_xla, attn_mask,
+                                       mlp)
 from repro_torch.models.spec import ParamSpec
 
 
@@ -104,7 +119,11 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                ctx: RunContext, rope, cache: Optional[dict], mode: str,
                prefix_len: int, pos, cache_capacity: int = 0,
                block_tables: Optional[torch.Tensor] = None,
-               block_size: int = 0) -> Tuple[torch.Tensor, Optional[dict]]:
+               block_size: int = 0, plan: Optional["MeshPlan"] = None
+               ) -> Tuple[torch.Tensor, Optional[dict]]:
+    if plan is not None:
+        return _attn_sharded(params, x, cfg, rope, cache, mode, prefix_len,
+                             pos, cache_capacity, plan)
     cos, sin = rope
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
@@ -247,13 +266,30 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                 prefix_len: int, pos, cache_capacity: int = 0,
                 block_tables=None, block_size: int = 0):
     """Returns (x, new_cache, aux_loss): the aux loss is the MoE router's
-    load-balance term (a float32 zero for every other block)."""
+    load-balance term (a float32 zero for every other block).  On a mesh
+    the arguments are DTensors (:func:`_block_sharded`)."""
+    if ctx.mesh is not None:
+        if block_tables is not None or mode == "chunk":
+            raise NotImplementedError("a mesh runs train, prefill and "
+                                      "contiguous decode, not the paged pool")
+        return _block_sharded(kind, params, x, cfg, ctx, rope, cache, mode,
+                              prefix_len, pos, cache_capacity)
+    return _block_body(kind, params, x, cfg, ctx, rope, cache, mode,
+                       prefix_len, pos, cache_capacity, block_tables,
+                       block_size)
+
+
+def _block_body(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
+                ctx: RunContext, rope, cache: Optional[dict], mode: str,
+                prefix_len: int, pos, cache_capacity: int = 0,
+                block_tables=None, block_size: int = 0,
+                plan: Optional["MeshPlan"] = None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(x, params["norm1"], cfg.norm_type)
     if kind == "attn":
         mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
                                     mode, prefix_len, pos, cache_capacity,
-                                    block_tables, block_size)
+                                    block_tables, block_size, plan=plan)
     elif kind == "rglru":
         mix, new_cache = rglru.rglru_block_apply(params["rec"], h, cfg, ctx,
                                                  cache, mode)
@@ -272,10 +308,455 @@ def block_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
         new_cache = ({"tm": tm_cache, "cm": cm_cache}
                      if tm_cache is not None else None)
     elif kind == "attn" and cfg.is_moe:
-        ffn, aux = moe.moe_apply(params["ffn"], h2, cfg, ctx)
+        ffn, aux = moe.moe_apply(params["ffn"], h2, cfg, ctx, plan=plan)
+    elif plan is not None:
+        ffn = _mlp_sharded(params["ffn"], h2, cfg, plan)
     else:
         ffn = mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
     return x + ffn, new_cache, aux
+
+
+def block_cache_axes(cfg: ModelConfig, kind: str):
+    """Logical sharding axes mirroring ``init_block_cache`` structure.
+
+    kv_heads takes the model axis when divisible; otherwise the cache
+    sequence dim does ("kv_seq" is lower priority than "kv_heads" in
+    ``distributed.sharding._PRIORITY``, so exactly one of them claims it).
+    """
+    if kind == "attn":
+        kv = ("batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": kv, "v": kv}
+    if kind == "rglru":
+        return {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
+    if kind == "rwkv":
+        return {"tm": {"prev": ("batch", None),
+                       "s": ("batch", "heads", None, None)},
+                "cm": {"prev": ("batch", None)}}
+    raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------- #
+# Sharded blocks
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """Layout of one block's local tensors on ``mesh``.
+
+    ``batch_sharded``: the batch dim is split over ``dp_axes``;
+    ``seq_sharded``: the rows are split over the model axis (zero-sp);
+    ``attn``: ``"heads"`` (local q heads, their K/V heads sliced or local),
+    ``"seq"`` (local q rows against all K/V rows), ``"kvseq"`` (decode
+    against a cache whose sequence is split over the model axis: partial
+    softmax per rank, combined) or ``"rep"`` (everything replicated);
+    ``cache_dim``: the cache dim split over the model axis (1: sequence,
+    2: KV heads) or None."""
+
+    mesh: Any
+    model_axis: str
+    dp_axes: Tuple[str, ...]
+    batch_sharded: bool
+    seq_sharded: bool
+    attn: str
+    cache_dim: Optional[int]
+    fsdp: bool
+
+    @property
+    def model_size(self) -> int:
+        return shd.axis_size(self.mesh, self.model_axis)
+
+    @property
+    def model_rank(self) -> int:
+        return shd.axis_index(self.mesh, self.model_axis)
+
+
+def _plc(ctx: RunContext, dp, model):
+    """Placements over ``ctx.mesh``: ``dp`` on every data-parallel axis,
+    ``model`` on the model axis, ``Replicate()`` on any other."""
+    from torch.distributed.tensor import Replicate
+    return tuple(model if n == ctx.model_axis
+                 else (dp if n in ctx.dp_axes else Replicate())
+                 for n in ctx.mesh.mesh_dim_names)
+
+
+def _placement(kind_):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if kind_ == "R":
+        return Replicate()
+    if kind_ == "P":
+        return Partial()
+    return Shard(kind_[1])
+
+
+def _leaf_roles(kind: str, path: str, cfg: ModelConfig, plan: MeshPlan):
+    """(model-axis use, model-axis gradient, data-axis use) of one block
+    parameter: ``("S", d)`` keeps dim ``d`` split over the axis, ``"R"``
+    gathers it whole for computation replicated over the axis (gradient
+    whole on every rank), ``"P"`` gathers it whole for computation split
+    over the axis (gradient a partial sum).  On the data axes a parameter
+    is gathered (``"R"``) unless serving's MoE contracts a d_model slice
+    (``("S", 1)``)."""
+    rep = "P" if plan.seq_sharded else "R"
+    top, _, name = path.partition("/")
+    if kind != "attn" or top.startswith("norm"):
+        return rep, rep, "R"
+    msz = plan.model_size
+    if top == "attn":
+        if plan.attn == "heads":
+            kv_split = cfg.n_kv_heads % msz == 0
+            d = 1 if name.startswith("w") and name != "wo" else 0
+            if name in ("wq", "bq", "wo") or kv_split:
+                return ("S", d), ("S", d), "R"
+            return "R", "P", "R"
+        if plan.attn == "seq":
+            return "R", ("R" if name == "wo" and not plan.seq_sharded
+                         else "P"), "R"
+        return "R", "R", "R"
+    if cfg.is_moe:
+        if name == "router":
+            return rep, rep, "R"
+        ep = cfg.n_experts % msz == 0
+        d = 0 if ep else (2 if name in ("wi", "wg") else 1)
+        data = "R" if plan.fsdp or name == "wo" else ("S", 1)
+        return ("S", d), ("S", d), data
+    if cfg.d_ff % msz == 0 and not plan.seq_sharded:
+        d = 1 if name in ("wi", "wg") else 0
+        return ("S", d), ("S", d), "R"
+    return rep, rep, "R"
+
+
+def _leaf_placements(use_m, data, ctx: RunContext):
+    from torch.distributed.tensor import Replicate, Shard
+    names = ctx.mesh.mesh_dim_names
+    out = []
+    for n in names:
+        if n == ctx.model_axis:
+            out.append(_placement(use_m) if use_m != "P" else Replicate())
+        elif n == "data" and data != "R":
+            out.append(Shard(data[1]))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _leaf_grad_placements(grad_m, data, ctx: RunContext, plan: MeshPlan):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for n in ctx.mesh.mesh_dim_names:
+        if n == ctx.model_axis:
+            out.append(_placement(grad_m))
+        elif n in ctx.dp_axes:
+            if n == "data" and data != "R":
+                out.append(Shard(data[1]))
+            else:
+                out.append(Partial() if plan.batch_sharded else Replicate())
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _flat(tree[k], f"{prefix}/{k}" if prefix else k)
+        return out
+    return [(prefix, tree)]
+
+
+def _unflat(paths, leaves):
+    out = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def _cache_placements(cfg: ModelConfig, kind: str, shapes: dict,
+                      ctx: RunContext):
+    """Stored placements of one block's cache leaves (``shapes``: path ->
+    global shape), the layout of ``steps.cache_shardings``."""
+    axes = dict(_flat(block_cache_axes(cfg, kind)))
+    rules = shd.rules_for(ctx.sharding_profile)
+    return {p: shd.placements(shd.spec_for(shp, axes[p], ctx.mesh, rules),
+                              ctx.mesh)
+            for p, shp in shapes.items()}
+
+
+def _attn_mode(cfg: ModelConfig, ctx: RunContext, mode: str, seq: int,
+               cache_dim: Optional[int]) -> str:
+    msz = ctx.model_size
+    if mode == "decode":
+        return {2: "heads", 1: "kvseq"}.get(cache_dim, "rep")
+    if (ctx.zero_sp or cfg.n_heads % msz != 0) and seq % msz == 0:
+        return "seq"
+    return "heads" if cfg.n_heads % msz == 0 else "rep"
+
+
+def _block_cache_shapes(cfg: ModelConfig, kind: str, b: int, cap: int):
+    meta = torch.device("meta")
+    one = init_block_cache(cfg, kind, b, cap, torch.float32, meta)
+    return {p: tuple(t.shape) for p, t in _flat(one)}
+
+
+def _block_sharded(kind: str, params: dict, x, cfg: ModelConfig,
+                   ctx: RunContext, rope, cache: Optional[dict], mode: str,
+                   prefix_len: int, pos, cache_capacity: int):
+    """One block on ``ctx.mesh``: ``x`` (B, S, D) and the parameters are
+    DTensors, ``rope`` plain (1, S, D/2) tables; ``cache`` the block's
+    DTensor cache in decode.  Returns DTensors: x at its placements, the
+    cache at its stored placements (``steps.cache_shardings``), aux
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ctx.mesh
+    msz = ctx.model_size
+    b, s = x.shape[:2]
+    batch_sharded = b % ctx.dp_size == 0
+    seq_sharded = (ctx.zero_sp and mode in ("train", "prefill")
+                   and s % msz == 0)
+    if seq_sharded and (kind != "attn" or cfg.is_moe):
+        raise NotImplementedError("zero-sp shards the sequence of dense "
+                                  "attention blocks only")
+    # cache layout
+    cache_plc, cache_in_plc = {}, {}
+    if mode == "prefill":
+        cap = cache_capacity or s
+        cache_plc = _cache_placements(
+            cfg, kind, _block_cache_shapes(cfg, kind, b, cap), ctx)
+    elif mode == "decode":
+        cache_plc = {p: t.placements for p, t in _flat(cache)}
+    cache_dim = None
+    if kind == "attn" and cache_plc:
+        m_idx = mesh.mesh_dim_names.index(ctx.model_axis)
+        pk = cache_plc["k"][m_idx]
+        cache_dim = pk.dim if pk.is_shard() else None
+    plan = MeshPlan(mesh, ctx.model_axis, tuple(ctx.dp_axes), batch_sharded,
+                    seq_sharded, _attn_mode(cfg, ctx, mode, s, cache_dim),
+                    cache_dim, ctx.fsdp_weights)
+    dp_p = Shard(0) if batch_sharded else Replicate()
+    x_plc = _plc(ctx, dp_p, Shard(1) if seq_sharded else Replicate())
+
+    paths, leaves = zip(*_flat(params))
+    roles = [_leaf_roles(kind, p, cfg, plan) for p in paths]
+    in_plc = [_leaf_placements(u, d, ctx) for u, _, d in roles]
+    grad_plc = [_leaf_grad_placements(g, d, ctx, plan) for _, g, d in roles]
+    cpaths = sorted(cache_plc)
+    if mode == "decode":
+        cache_leaves = [dict(_flat(cache))[p] for p in cpaths]
+        # attention reads and writes its cache shard in place; recurrent
+        # state enters whole over the model axis and leaves as stored
+        cache_in_plc = {p: (cache_plc[p] if kind == "attn"
+                            else _plc(ctx, dp_p, Replicate()))
+                        for p in cpaths}     # sorted, as cache_leaves
+    else:
+        cache_leaves = []
+    ctx_local = dataclasses.replace(ctx, mesh=None)
+    n_par = len(leaves)
+    m_idx = mesh.mesh_dim_names.index(ctx.model_axis)
+
+    def body(xl, cos, sin, *rest):
+        p = _unflat(paths, rest[:n_par])
+        c = (_unflat(cpaths, rest[n_par:]) if mode == "decode" else None)
+        if kind == "attn":
+            xo, nc, aux = _block_body(kind, p, xl, cfg, ctx, (cos, sin), c,
+                                      mode, prefix_len, pos, cache_capacity,
+                                      plan=plan)
+        else:
+            xo, nc, aux = _block_body(kind, p, xl, cfg, ctx_local,
+                                      (cos, sin), c, mode, prefix_len, pos,
+                                      cache_capacity)
+            if nc is not None:       # whole state -> stored model shards
+                flat = dict(_flat(nc))
+                nc = _unflat(cpaths, [
+                    shd.split_to(flat[q], mesh, ctx.model_axis,
+                                 cache_plc[q][m_idx].dim)
+                    if cache_plc[q][m_idx].is_shard() else flat[q]
+                    for q in cpaths])
+        outs = [xo, aux]
+        if cpaths:
+            flat = dict(_flat(nc))
+            outs += [flat[q] for q in cpaths]
+        return tuple(outs)
+
+    rep = _plc(ctx, Replicate(), Replicate())
+    out_plc = (x_plc, rep) + tuple(cache_plc[q] for q in cpaths)
+    fn = shd.local_map(
+        body, mesh=mesh,
+        in_placements=(x_plc, None, None, *in_plc,
+                       *(cache_in_plc[q] for q in cache_in_plc)),
+        out_placements=out_plc,
+        in_grad_placements=(x_plc, None, None, *grad_plc,
+                            *(None for _ in cache_in_plc)))
+    cos, sin = rope
+    outs = fn(x, cos, sin, *leaves, *cache_leaves)
+    x_out, aux = outs[0], outs[1]
+    new_cache = _unflat(cpaths, outs[2:]) if cpaths else None
+    return x_out, new_cache, aux
+
+
+def _mlp_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 plan: MeshPlan) -> torch.Tensor:
+    """Dense MLP on local tensors: tensor-parallel over d_ff when the
+    weights hold a d_ff slice (Megatron: f before, g after), else whole."""
+    if params["wi"].shape[1] == cfg.d_ff:
+        return mlp(params, x, cfg.mlp_act, cfg.mlp_gated)
+    mesh, m = plan.mesh, plan.model_axis
+    y = mlp(params, shd.copy_to(x, mesh, m), cfg.mlp_act, cfg.mlp_gated)
+    return shd.reduce_from(y, mesh, m)
+
+
+def _rows(t: torch.Tensor, plan: MeshPlan, n: int) -> torch.Tensor:
+    """This rank's ``n`` rows (dim 1) of a (1, S, ...) table."""
+    return t.narrow(1, plan.model_rank * n, n)
+
+
+def _attn_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig, rope,
+                  cache: Optional[dict], mode: str, prefix_len: int, pos,
+                  cache_capacity: int, plan: MeshPlan):
+    """Attention on local tensors in the layout ``plan`` names: ``x`` the
+    normed (B_local, S or S/M, D) activation, replicated over the model
+    axis unless zero-sp splits its rows."""
+    mesh, m = plan.mesh, plan.model_axis
+    msz, r = plan.model_size, plan.model_rank
+    cos, sin = rope
+    softcap = cfg.logit_softcap
+    b, s = x.shape[:2]
+    if plan.attn in ("heads", "seq") and not plan.seq_sharded \
+            and mode != "decode":
+        x = shd.copy_to(x, mesh, m)
+
+    def proj(name, xi, c=None, sn=None):
+        t = _proj(xi, params["w" + name])
+        if cfg.qkv_bias:
+            t = t + params["b" + name].to(x.dtype)
+        return apply_rope(t, c, sn) if c is not None else t
+
+    def qkv(xi, c, sn):
+        return proj("q", xi, c, sn), proj("k", xi, c, sn), proj("v", xi)
+
+    new_cache = None
+    if mode == "decode":
+        q, k, v = qkv(x, cos, sin)
+        out = _decode_sharded(q, k, v, cfg, cache, int(pos), plan)
+        new_cache = cache
+    elif plan.attn == "seq":
+        if plan.seq_sharded:
+            c, sn = _rows(cos, plan, s), _rows(sin, plan, s)
+            q, k, v = qkv(x, c, sn)
+            k = shd.gather_from(k, mesh, m, 1, partial=True)
+            v = shd.gather_from(v, mesh, m, 1, partial=True)
+            rows, off = s, r * s
+        else:
+            rows, off = s // msz, r * (s // msz)
+            k, v = proj("k", x, cos, sin), proj("v", x)
+            q = proj("q", shd.split_to(x, mesh, m, 1),
+                     _rows(cos, plan, rows), _rows(sin, plan, rows))
+        out = attention_xla(q, k, v, causal=cfg.causal, window=cfg.window,
+                            prefix_len=prefix_len, softcap=softcap,
+                            q_offset=off, q_chunk=max(128, _Q_CHUNK // msz))
+        if not plan.seq_sharded:
+            out = shd.gather_from(out, mesh, m, 1)      # all rows again
+        if mode == "prefill":
+            new_cache = _cache_shard(_prefill_cache(k, v, cfg,
+                                                    cache_capacity),
+                                     plan, full_heads=True)
+    else:
+        q, k, v = qkv(x, cos, sin)
+        kq, vq = k, v
+        if plan.attn == "heads" and cfg.n_kv_heads % msz:
+            kq, vq = _kv_for_local_heads(k, v, cfg, plan)
+        out = attention_xla(q, kq, vq, causal=cfg.causal, window=cfg.window,
+                            prefix_len=prefix_len, softcap=softcap)
+        if mode == "prefill":
+            full = plan.attn != "heads" or cfg.n_kv_heads % msz != 0
+            new_cache = _cache_shard(_prefill_cache(k, v, cfg,
+                                                    cache_capacity),
+                                     plan, full_heads=full)
+    bb, ss = out.shape[:2]
+    wo = params["wo"]
+    y = torch.matmul(out.reshape(bb, ss, -1).to(x.dtype),
+                     wo.reshape(-1, wo.shape[-1]))
+    if plan.attn == "heads":
+        y = shd.reduce_from(y, mesh, m)
+    return y, new_cache
+
+
+def _kv_for_local_heads(k, v, cfg: ModelConfig, plan: MeshPlan):
+    """K/V heads of this rank's q heads when the KV heads do not split
+    over the model axis: a contiguous run of KV heads when the local q
+    heads cover whole groups, else one KV head per q head (GQA group 1)."""
+    hq_l = cfg.n_heads // plan.model_size
+    g = cfg.q_per_kv
+    first = plan.model_rank * hq_l
+    if hq_l % g == 0:
+        return (k.narrow(2, first // g, hq_l // g),
+                v.narrow(2, first // g, hq_l // g))
+    idx = torch.div(torch.arange(first, first + hq_l, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _cache_shard(c: dict, plan: MeshPlan, full_heads: bool) -> dict:
+    """The prefill cache's local shard at its stored layout."""
+    dim = plan.cache_dim
+    if dim is None or (dim == 2 and not full_heads):
+        return c
+    return {n: shd.split_to(t, plan.mesh, plan.model_axis, dim)
+            for n, t in c.items()}
+
+
+def _decode_sharded(q, k, v, cfg: ModelConfig, cache: dict, pos: int,
+                    plan: MeshPlan):
+    """One decode step against the local cache shard (written in place).
+    ``"heads"``: local q and KV heads; ``"kvseq"``: all heads against this
+    rank's stretch of slots, the partial softmaxes combined over the model
+    axis (max, then sums); ``"rep"``: the whole cache."""
+    ck, cv = cache["k"], cache["v"]
+    cap_l = ck.shape[1]
+    msz = plan.model_size
+    cap = cap_l * (msz if plan.attn == "kvseq" else 1)
+    if cfg.window is not None and cap == cfg.window:
+        slot = pos % cap
+        k_pos = _ring_positions(pos, cap, q.device)
+    else:
+        slot = min(pos, cap - 1)
+        k_pos = torch.arange(cap, device=q.device)
+    if plan.attn != "kvseq":
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        return attention_xla(q, ck, cv, causal=True, window=cfg.window,
+                             softcap=cfg.logit_softcap, q_offset=pos,
+                             k_pos=k_pos if cfg.window is not None
+                             and cap == cfg.window else None)
+    lo = plan.model_rank * cap_l
+    if lo <= slot < lo + cap_l:
+        ck[:, slot - lo] = k[:, 0]
+        cv[:, slot - lo] = v[:, 0]
+    k_pos = k_pos[lo:lo + cap_l]
+    b, _, hq, d = q.shape
+    hkv = ck.shape[2]
+    qg = q.reshape(b, 1, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float()) * d ** -0.5
+    if cfg.logit_softcap is not None:
+        scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
+    q_pos = torch.full((b, 1), pos, device=q.device)
+    mask = attn_mask(q_pos, k_pos.expand(b, cap_l), causal=True,
+                     window=cfg.window)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    mesh, m = plan.mesh, plan.model_axis
+    mx = scores.amax(-1, keepdim=True)
+    gmx = shd.reduce_from(mx, mesh, m, "max")
+    z = torch.exp(scores - gmx)
+    denom = shd.reduce_from(z.sum(-1, keepdim=True), mesh, m)
+    # normalised and rounded to the value dtype before the PV product, as
+    # ``_attn_core`` and the reference do
+    p = (z / denom).to(v.dtype).float()
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float())
+    o = shd.reduce_from(o, mesh, m)
+    return o.to(v.dtype).reshape(b, 1, hq, d)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int,

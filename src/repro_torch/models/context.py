@@ -2,12 +2,13 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 IMPLS = ("torch", "cuda")
 REMATS = ("none", "dots", "full")
+PROFILES = ("tp", "zero-sp", "serve", "legacy")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -40,7 +41,19 @@ class RunContext:
     its matmul outputs (``"dots"``) or stores everything (``"none"``);
     ``loss_chunk`` evaluates the cross-entropy that many positions at a
     time (0: at once); ``microbatches`` splits a train step's batch for
-    gradient accumulation.  There is no mesh: the port runs on one device.
+    gradient accumulation.
+
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``, or None for
+    one device) runs the model sharded: parameters, optimizer state, caches
+    and inputs are DTensors placed by ``distributed/sharding.py``
+    (``sharding_profile``: ``"tp"`` Megatron tensor parallelism over
+    ``model_axis`` plus FSDP over ``data``; ``"zero-sp"`` weights FSDP
+    only and the sequence over the model axis; ``"serve"`` weights
+    resident, no FSDP; ``"legacy"`` as ``"tp"`` without KV-cache sequence
+    sharding).  The batch shards over ``dp_axes``.  A mesh runs the plain
+    path: ``impl="cuda"`` with a mesh raises.  The reference's
+    ``seq_shard_attn`` (read nowhere there) and ``scan_unroll`` (eager
+    layer loops already dispatch every layer) have no counterpart.
     """
 
     device: torch.device
@@ -50,6 +63,10 @@ class RunContext:
     remat: str = "full"
     loss_chunk: int = 0
     microbatches: int = 1
+    mesh: Optional[Any] = None
+    dp_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    sharding_profile: str = "tp"
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -57,6 +74,42 @@ class RunContext:
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}: "
                              f"{self.remat!r}")
+        if self.sharding_profile not in PROFILES:
+            raise ValueError(f"sharding_profile must be one of {PROFILES}: "
+                             f"{self.sharding_profile!r}")
+        if self.mesh is not None and self.impl != "torch":
+            raise ValueError("a mesh runs the plain path (impl='torch'); "
+                             "the hand-written kernels take one device")
+
+    @property
+    def zero_sp(self) -> bool:
+        return self.sharding_profile == "zero-sp"
+
+    @property
+    def fsdp_weights(self) -> bool:
+        # serving keeps its weights resident: no per-layer FSDP gathers
+        return self.sharding_profile != "serve"
+
+    @property
+    def model_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.size(self.mesh.mesh_dim_names.index(
+            self.model_axis))
+
+    @property
+    def dp_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        names = self.mesh.mesh_dim_names
+        n = 1
+        for a in self.dp_axes:
+            n *= self.mesh.size(names.index(a))
+        return n
+
+    def dp_spec(self):
+        """Spec entry of the batch dim (``sharding.spec_for``'s form)."""
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
 
     @classmethod
     def on(cls, device: Optional[Union[str, torch.device]] = None,

@@ -12,8 +12,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
+# Query-chunk size above which attention takes its rows a chunk at a time
+# (keeps 32k-prefill activation memory O(S * chunk)).
+_Q_CHUNK = 1024
 
 
 # --------------------------------------------------------------------------- #
@@ -147,34 +151,12 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return ok & (k >= 0)
 
 
-def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None,
-                  prefix_len: int = 0, softcap: Optional[float] = None,
-                  q_offset=0,
-                  k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Grouped-query attention, scores materialized in float32.
-
-    q: (B, Sq, Hq, D);  k, v: (B, Sk, Hkv, D);  returns (B, Sq, Hq, D).
-    ``q_offset`` is the absolute position of q[0] (an int, or a (B,) tensor
-    of per-row cursors); keys sit at positions 0..Sk-1 unless ``k_pos``
-    ((Sk,) or (B, Sk)) names each key's position (ring buffers);
-    ``prefix_len`` as in :func:`attn_mask`.
-    Probabilities are rounded to the value dtype before the PV product, as
-    the reference does.
-    """
-    b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    dev = q.device
-    qg = q.reshape(b, sq, hkv, g, d).float()
-    if k_pos is None:
-        k_pos = torch.arange(sk, device=dev)
-    k_pos = k_pos.expand(b, sk)
-    if isinstance(q_offset, torch.Tensor) and q_offset.ndim == 1:
-        q_pos = q_offset.long()[:, None] + torch.arange(sq, device=dev)
-    else:
-        q_pos = (int(q_offset) + torch.arange(sq, device=dev)).expand(b, sq)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
+def _attn_core(q, k, v, q_pos, k_pos, *, causal, window, prefix_len,
+               softcap):
+    """q: (B, Sq, Hkv, G, D); k, v: (B, Sk, Hkv, D); q_pos (B, Sq), k_pos
+    (B, Sk) -> (B, Sq, Hkv, G, D) in v's dtype."""
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                          k.float()) * q.shape[-1] ** -0.5
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     mask = attn_mask(q_pos, k_pos, causal=causal, window=window,
@@ -184,4 +166,69 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())
-    return out.to(v.dtype).reshape(b, sq, hq, d)
+    return out.to(v.dtype)
+
+
+def _chunked(core, qg, q_pos, chunk: int, n: int):
+    """``core`` over ``n`` query chunks of ``chunk`` rows of ``qg`` and
+    ``q_pos``, each chunk recomputed in the backward pass rather than kept
+    (the reference's ``jax.checkpoint`` around each chunk of its
+    ``lax.map``)."""
+    outs = []
+    for i in range(n):
+        qi = qg.narrow(1, i * chunk, chunk)
+        pi = q_pos.narrow(1, i * chunk, chunk)
+        if torch.is_grad_enabled() and qg.requires_grad:
+            outs.append(checkpoint(core, qi, pi, use_reentrant=False))
+        else:
+            outs.append(core(qi, pi))
+    return torch.cat(outs, dim=1)
+
+
+def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  prefix_len: int = 0, softcap: Optional[float] = None,
+                  q_offset=0, k_pos: Optional[torch.Tensor] = None,
+                  q_chunk: int = _Q_CHUNK) -> torch.Tensor:
+    """Grouped-query attention, scores materialized in float32, memory
+    bounded by query chunking.
+
+    q: (B, Sq, Hq, D);  k, v: (B, Sk, Hkv, D);  returns (B, Sq, Hq, D).
+    ``q_offset`` is the absolute position of q[0] (an int, or a (B,) tensor
+    of per-row cursors); keys sit at positions 0..Sk-1 unless ``k_pos``
+    ((Sk,) or (B, Sk)) names each key's position (ring buffers);
+    ``prefix_len`` as in :func:`attn_mask`.
+    Probabilities are rounded to the value dtype before the PV product, as
+    the reference does.
+
+    Past ``q_chunk`` query rows (when it divides Sq) the rows are taken a
+    chunk at a time, each chunk recomputed in the backward pass: memory
+    O(Sq x chunk), the same arithmetic per row.  On a mesh the rows are
+    already each rank's own (``blocks._block_sharded`` runs this under
+    ``local_map``), so the reference's sequence-parallel row blocks
+    (``seq_shards``, ``constrain_cb``, ``_attn_core_m``) have no
+    counterpart here.
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    qg = q.reshape(b, sq, hkv, g, d)
+    if k_pos is None:
+        k_pos = torch.arange(sk, device=dev)
+    k_pos = k_pos.expand(b, sk)
+    if isinstance(q_offset, torch.Tensor) and q_offset.ndim == 1:
+        q_pos = q_offset.long()[:, None] + torch.arange(sq, device=dev)
+    else:
+        q_pos = (int(q_offset) + torch.arange(sq, device=dev)).expand(b, sq)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len,
+              softcap=softcap)
+
+    def core(qi, pi):
+        return _attn_core(qi, k, v, pi, k_pos, **kw)
+
+    if sq > q_chunk and sq % q_chunk == 0:
+        out = _chunked(core, qg, q_pos, q_chunk, sq // q_chunk)
+    else:
+        out = core(qg, q_pos)
+    return out.reshape(b, sq, hq, d)

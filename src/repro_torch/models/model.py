@@ -11,6 +11,12 @@ updated in place; recurrent state leaves (no capacity axis) are replaced
 by each step.  Training (``forward(mode="train")``) writes no cache and
 recomputes each layer group in the backward pass (``ctx.remat``, through
 ``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does.
+
+On a mesh (``ctx.mesh``) the parameters, caches and inputs are DTensors
+(``launch/steps.py`` places them): the embedding, every block
+(``blocks.block_apply``), the unembedding and the vocab-sharded loss each
+run under one ``local_map``; :func:`constrain` pins activations between
+them, the reference's ``with_sharding_constraint``.
 """
 from __future__ import annotations
 
@@ -25,10 +31,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import blocks
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import apply_norm, matmul_f32, rope_tables
-from repro_torch.models.spec import (ParamSpec, init_params, map_specs,
+from repro_torch.models.spec import (ParamSpec, abstract_params,
+                                     init_params, logical_axes, map_specs,
                                      param_count, spec_leaves, stack_specs)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -38,6 +46,27 @@ _AUX_COEF = 0.01
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def constrain(x: torch.Tensor, ctx: RunContext, *trailing) -> torch.Tensor:
+    """Pin a DTensor activation: batch dim over the data-parallel axes and
+    each trailing dim over the mesh axis named for it (or replicated),
+    where the size divides; a plain tensor comes back unchanged.  The
+    reference's ``with_sharding_constraint``: here a ``redistribute``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if ctx.mesh is None or not isinstance(x, DTensor):
+        return x
+    sizes = shd.mesh_shape(ctx.mesh)
+    plc = []
+    for name in ctx.mesh.mesh_dim_names:
+        p = Replicate()
+        if name in ctx.dp_axes and x.shape[0] % ctx.dp_size == 0:
+            p = Shard(0)
+        for d, (size, want) in enumerate(zip(x.shape[1:], trailing), 1):
+            if want == name and size % sizes[name] == 0:
+                p = Shard(d)
+        plc.append(p)
+    return x.redistribute(ctx.mesh, tuple(plc))
 
 
 # --------------------------------------------------------------------------- #
@@ -83,6 +112,15 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return init_params(param_specs(cfg), generator, device)
 
 
+def init_abstract(cfg: ModelConfig) -> Dict:
+    """Meta tensors of every parameter: shapes and dtypes, no storage."""
+    return abstract_params(param_specs(cfg))
+
+
+def param_logical_axes(cfg: ModelConfig) -> Dict:
+    return logical_axes(param_specs(cfg))
+
+
 def n_params(cfg: ModelConfig) -> int:
     return param_count(param_specs(cfg))
 
@@ -115,6 +153,16 @@ def layers(cfg: ModelConfig, params: Dict, cache: Optional[Dict]
         key = f"r{j}"
         yield (kind, params["layers"]["rest"][key],
                None if cache is None else cache["rest"][key])
+
+
+def _unbind(tree):
+    """Each stacked leaf split into its groups once (views): one
+    ``unbind`` whose backward is one ``stack``, where a ``select`` per
+    group would give each group's gradient as a zero-filled copy of the
+    whole stack, summed group by group."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return tree.unbind(0)
 
 
 def _pick(tree, i):
@@ -203,6 +251,27 @@ def cache_axes(cfg: ModelConfig):
     return tree_map(diff_axis, b1, b2), tree_map(diff_axis, c1, c2)
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, capacity: int) -> Dict:
+    """Meta tensors of :func:`init_cache`'s tree."""
+    return init_cache(cfg, batch, capacity, device=torch.device("meta"))
+
+
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes tree matching :func:`init_cache` (leading layer-stack
+    dim on the stacked groups)."""
+    pat, _, rest = grouping(cfg)
+
+    def stacked(kind):
+        return tree_map(lambda a: ("layers",) + a,
+                        blocks.block_cache_axes(cfg, kind))
+
+    return {
+        "stack": {f"b{i}": stacked(kind) for i, kind in enumerate(pat)},
+        "rest": {f"r{i}": blocks.block_cache_axes(cfg, kind)
+                 for i, kind in enumerate(rest)},
+    }
+
+
 def cache_leaves(cfg: ModelConfig, cache: Dict):
     """``[(leaf, batch_axis)]`` over every tensor (KV or state) of a cache
     tree, in sorted key order."""
@@ -257,8 +326,10 @@ def _stack_caches(cfg: ModelConfig, per_layer, kv_from=None):
 # --------------------------------------------------------------------------- #
 # Embedding / unembedding
 # --------------------------------------------------------------------------- #
-def embed_tokens(cfg: ModelConfig, params: Dict,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                 ctx: Optional[RunContext] = None) -> torch.Tensor:
+    if ctx is not None and ctx.mesh is not None:
+        return _embed_sharded(cfg, params, {"tokens": tokens}, ctx)
     dtype = dtype_of(cfg)
     x = params["embed"][tokens.long()].to(dtype)
     if cfg.scale_embeddings:
@@ -266,36 +337,126 @@ def embed_tokens(cfg: ModelConfig, params: Dict,
     return x
 
 
-def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict):
-    """Returns (x, positions, prefix_len).  Text embeds ``tokens``; the
-    audio stub projects ``frames`` (B, S, d_model); the vision stub
-    projects ``patches`` (B, P, d_model) into a prefix of P positions
-    ahead of the embedded ``tokens`` (``prefix_len`` = P)."""
+def _frontend(cfg: ModelConfig, params: Dict, batch: Dict, tok_embed):
+    """(x, prefix_len) of a batch: text embeds ``tokens``; the audio stub
+    projects ``frames``; the vision stub projects ``patches`` into a
+    prefix ahead of the embedded ``tokens``."""
     dtype = dtype_of(cfg)
     if cfg.frontend == "audio":
         x = torch.matmul(batch["frames"].to(dtype),
                          params["frontend"]["proj"]).to(dtype)
-        prefix_len = 0
-    elif cfg.frontend == "vision":
+        return x, 0
+    if cfg.frontend == "vision":
         patches = torch.matmul(batch["patches"].to(dtype),
                                params["frontend"]["proj"]).to(dtype)
-        x = torch.cat([patches, embed_tokens(cfg, params, batch["tokens"])],
-                      dim=1)
-        prefix_len = patches.shape[1]
-    else:
-        x = embed_tokens(cfg, params, batch["tokens"])
-        prefix_len = 0
+        return torch.cat([patches, tok_embed(batch["tokens"])], dim=1), \
+            patches.shape[1]
+    return tok_embed(batch["tokens"]), 0
+
+
+def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict,
+                 ctx: Optional[RunContext] = None):
+    """Returns (x, positions, prefix_len).  Text embeds ``tokens``; the
+    audio stub projects ``frames`` (B, S, d_model); the vision stub
+    projects ``patches`` (B, P, d_model) into a prefix of P positions
+    ahead of the embedded ``tokens`` (``prefix_len`` = P).  On a mesh x is
+    a DTensor and positions has one row (every row's are the same)."""
+    if ctx is not None and ctx.mesh is not None:
+        x = _embed_sharded(cfg, params, batch, ctx)
+        prefix_len = (batch["patches"].shape[1]
+                      if cfg.frontend == "vision" else 0)
+        s = x.shape[1]
+        dev = batch[next(iter(batch))].device
+        return x, torch.arange(s, device=dev)[None], prefix_len
+    x, prefix_len = _frontend(cfg, params, batch,
+                              lambda t: embed_tokens(cfg, params, t))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     return x, positions, prefix_len
 
 
-def unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+def _vocab_split(t: torch.Tensor, ctx: RunContext, dim: int) -> bool:
+    """Whether a DTensor parameter's vocab dim ``dim`` is split over the
+    model axis."""
+    p = t.placements[ctx.mesh.mesh_dim_names.index(ctx.model_axis)]
+    return p.is_shard() and p.dim == dim
+
+
+def _embed_sharded(cfg: ModelConfig, params: Dict, batch: Dict,
+                   ctx: RunContext):
+    """Embedding (and frontend projection) under one ``local_map``: the
+    table gathered over the data axes; when its vocab is split over the
+    model axis each rank looks up the tokens in its stretch and one sum
+    over the axis completes every row (vocab-parallel).  Zero-sp gathers
+    the table whole and splits the rows over the model axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, m = ctx.mesh, ctx.model_axis
+    dtype = dtype_of(cfg)
+    names = sorted(n for n in batch if n in ("tokens", "frames", "patches"))
+    b = batch[names[0]].shape[0]
+    s_full = sum(batch[n].shape[1] for n in names)
+    dp = Shard(0) if b % ctx.dp_size == 0 else Replicate()
+    pdp = Partial() if b % ctx.dp_size == 0 else Replicate()
+    seq = ctx.zero_sp and s_full % ctx.model_size == 0
+    split = _vocab_split(params["embed"], ctx, 0) and not seq
+    rep_grad = Partial() if seq else Replicate()
+    leaves = {"embed": params["embed"]}
+    if cfg.frontend is not None:
+        leaves["proj"] = params["frontend"]["proj"]
+    lnames = sorted(leaves)
+    p_in = {"embed": blocks._plc(ctx, Replicate(),
+                                 Shard(0) if split else Replicate()),
+            "proj": blocks._plc(ctx, Replicate(), Replicate())}
+    p_grad = {"embed": blocks._plc(ctx, pdp, Shard(0) if split else rep_grad),
+              "proj": blocks._plc(ctx, pdp, rep_grad)}
+
+    def body(*args):
+        w = dict(zip(lnames, args[:len(lnames)]))
+        inp = dict(zip(names, args[len(lnames):]))
+
+        def tok_embed(tok):
+            tok = tok.long()
+            if split:
+                v_loc = w["embed"].shape[0]
+                idx = tok - shd.axis_index(mesh, m) * v_loc
+                ok = (idx >= 0) & (idx < v_loc)
+                x = w["embed"][idx.clamp(0, v_loc - 1)] * ok[..., None]
+                x = shd.reduce_from(x.to(dtype), mesh, m)
+            else:
+                x = w["embed"][tok].to(dtype)
+            if cfg.scale_embeddings:
+                x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+            return x
+
+        if names == ["tokens"]:             # a decode step's tokens
+            x = tok_embed(inp["tokens"])
+        else:
+            x, _ = _frontend(cfg, {"frontend": {"proj": w.get("proj")}},
+                             inp, tok_embed)
+        return shd.split_to(x, mesh, m, 1) if seq else x
+
+    fn = shd.local_map(
+        body, mesh=mesh,
+        in_placements=tuple(p_in[n] for n in lnames)
+        + tuple(blocks._plc(ctx, dp, Replicate()) for _ in names),
+        out_placements=blocks._plc(ctx, dp, Shard(1) if seq
+                                   else Replicate()),
+        in_grad_placements=tuple(p_grad[n] for n in lnames)
+        + tuple(None for _ in names))
+    return fn(*(leaves[n] for n in lnames), *(batch[n] for n in names))
+
+
+def unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+            ctx: Optional[RunContext] = None) -> torch.Tensor:
     """Final norm + vocab projection; logits in float32 from a float32
     product of the activation-dtype operands (:func:`layers.matmul_f32`,
     the reference's ``preferred_element_type=jnp.float32``).  A tied
     embedding is read through its transpose view: no float32 copy of the
-    vocabulary matrix is made on the card."""
+    vocabulary matrix is made on the card.  On a mesh the logits come out
+    split over the model axis along the vocab where the weight is."""
+    if ctx is not None and ctx.mesh is not None:
+        return constrain(_unembed_sharded(cfg, params, x, ctx), ctx, None,
+                         ctx.model_axis)
     x = apply_norm(x, params["final_norm"], cfg.norm_type)
     if cfg.tie_embeddings:
         logits = matmul_f32(x, params["embed"].t())
@@ -304,6 +465,46 @@ def unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def _unembed_sharded(cfg: ModelConfig, params: Dict, x, ctx: RunContext):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, m = ctx.mesh, ctx.model_axis
+    b = x.shape[0]
+    m_idx = mesh.mesh_dim_names.index(m)
+    seq = x.placements[m_idx].is_shard()
+    dp = Shard(0) if b % ctx.dp_size == 0 else Replicate()
+    pdp = Partial() if b % ctx.dp_size == 0 else Replicate()
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    vdim = 0 if cfg.tie_embeddings else 1
+    split = _vocab_split(w, ctx, vdim) and not seq
+    rep_grad = Partial() if seq else Replicate()
+    norm = params["final_norm"]
+    nnames = sorted(norm)
+    x_plc = blocks._plc(ctx, dp, Shard(1) if seq else Replicate())
+
+    def body(xl, wl, *nl):
+        h = apply_norm(xl, dict(zip(nnames, nl)), cfg.norm_type)
+        if split:
+            h = shd.copy_to(h, mesh, m)
+        logits = matmul_f32(h, wl.t() if cfg.tie_embeddings else wl)
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(logits
+                                                    / cfg.final_softcap)
+        return logits
+
+    rep = blocks._plc(ctx, Replicate(), Replicate())
+    fn = shd.local_map(
+        body, mesh=mesh,
+        in_placements=(x_plc, blocks._plc(ctx, Replicate(), Shard(vdim)
+                                          if split else Replicate()))
+        + tuple(rep for _ in nnames),
+        out_placements=blocks._plc(ctx, dp, Shard(2) if split
+                                   else (Shard(1) if seq else Replicate())),
+        in_grad_placements=(x_plc, blocks._plc(ctx, pdp, Shard(vdim)
+                                               if split else rep_grad))
+        + tuple(blocks._plc(ctx, pdp, rep_grad) for _ in nnames))
+    return fn(x, w, *(norm[n] for n in nnames))
 
 
 # --------------------------------------------------------------------------- #
@@ -334,6 +535,17 @@ def _remat_wrap(fn, ctx: RunContext, mode: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
+def _zero(x: torch.Tensor, ctx: RunContext) -> torch.Tensor:
+    """A float32 zero scalar beside ``x`` (a replicated DTensor on a
+    mesh)."""
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ctx.mesh is None:
+        return z
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(z, ctx.mesh,
+                              [Replicate()] * ctx.mesh.ndim, run_check=False)
+
+
 def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                 ctx: RunContext, rope, cache: Optional[Dict], mode: str,
                 prefix_len: int, pos, cache_capacity: int = 0,
@@ -345,6 +557,8 @@ def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     group run on their own, unwrapped, as in the reference."""
     pat, n_groups, rest = grouping(cfg)
     per_layer = []
+    seq_ax = ctx.model_axis if (ctx.mesh is not None and ctx.zero_sp) \
+        else None
 
     def run(kind, lp, lc, x):
         x, nc, a = blocks.block_apply(kind, lp, x, cfg, ctx, rope, lc, mode,
@@ -355,17 +569,19 @@ def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 
     def group(g):
         def body(x):
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x = constrain(x, ctx, seq_ax, None)
+            aux = _zero(x, ctx)
             for j, kind in enumerate(pat):
                 key = f"b{j}"
-                x, a = run(kind, _pick(params["layers"]["stack"][key], g),
+                x, a = run(kind, _pick(stack[key], g),
                            None if cache is None
                            else _pick(cache["stack"][key], g), x)
                 aux = aux + a
             return x, aux
         return _remat_wrap(body, ctx, mode)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x, ctx)
+    stack = _unbind(params["layers"]["stack"]) if n_groups else {}
     for g in range(n_groups):
         x, a = group(g)(x)
         aux = aux + a
@@ -380,31 +596,87 @@ def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Losses
 # --------------------------------------------------------------------------- #
+def _ce(lg: torch.Tensor, tg: torch.Tensor) -> torch.Tensor:
+    lg = lg.float()
+    ll = torch.take_along_dim(lg, tg.long()[..., None], dim=-1)[..., 0]
+    return torch.logsumexp(lg, dim=-1) - ll
+
+
+def _ce_vocab_sharded(logits: torch.Tensor, targets: torch.Tensor,
+                      ctx: RunContext) -> torch.Tensor:
+    """Per-token CE with the vocab dim split over the model axis, under one
+    ``local_map``: each rank reduces its vocab slice; a max over the axis
+    of the detached row max (the log-sum-exp is shift-invariant, so
+    treating the max as a constant gives exact gradients), then sums of
+    the exponentials and of the target logit.  No rank gathers the full
+    logits."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, m = ctx.mesh, ctx.model_axis
+    dp = Shard(0) if logits.shape[0] % ctx.dp_size == 0 else Replicate()
+
+    def body(lg, tg):
+        lg = lg.float()
+        v_loc = lg.shape[-1]
+        off = shd.axis_index(mesh, m) * v_loc
+        lmax = shd.reduce_from(lg.amax(-1), mesh, m, "max")
+        z = torch.exp(lg - lmax[..., None])
+        denom = shd.reduce_from(z.sum(-1), mesh, m)
+        idx = tg.long() - off
+        ok = (idx >= 0) & (idx < v_loc)
+        ll_loc = torch.take_along_dim(
+            lg, idx.clamp(0, v_loc - 1)[..., None], dim=-1)[..., 0]
+        ll = shd.reduce_from(torch.where(ok, ll_loc, 0.0), mesh, m)
+        return torch.log(denom) + lmax - ll
+
+    lg_plc = blocks._plc(ctx, dp, Shard(2))
+    return shd.local_map(
+        body, mesh=mesh,
+        in_placements=(lg_plc, blocks._plc(ctx, dp, Replicate())),
+        out_placements=blocks._plc(ctx, dp, Replicate()),
+        in_grad_placements=(lg_plc, None))(logits, targets)
+
+
+def _ce_sharded_rows(logits, targets, ctx: RunContext):
+    """Per-token CE of logits whose vocab is whole on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    dp = Shard(0) if logits.shape[0] % ctx.dp_size == 0 else Replicate()
+    plc = blocks._plc(ctx, dp, Replicate())
+    return shd.local_map(_ce, mesh=ctx.mesh, in_placements=(plc, plc),
+                         out_placements=plc,
+                         in_grad_placements=(plc, None))(logits, targets)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: Optional[torch.Tensor], chunk: int = 0
-                  ) -> torch.Tensor:
+                  mask: Optional[torch.Tensor], chunk: int = 0,
+                  ctx: Optional[RunContext] = None) -> torch.Tensor:
     """Stable cross-entropy of (B, S, V) logits against (B, S) targets in
     float32: the mean over positions, or over ``mask``-weighted positions
     (divided by at least 1).  ``chunk`` evaluates ``chunk`` positions at a
-    time when it divides S (the same per-position values).  The
-    vocab-sharded form waits for the port's mesh (ROADMAP Queue 1 item
-    10)."""
-    def ce(lg, tg):
-        lg = lg.float()
-        ll = torch.take_along_dim(lg, tg.long()[..., None], dim=-1)[..., 0]
-        return torch.logsumexp(lg, dim=-1) - ll
-
-    s = logits.shape[1]
-    if chunk and s % chunk == 0 and s > chunk:
-        losses = torch.cat([ce(logits[:, i:i + chunk],
-                               targets[:, i:i + chunk])
-                            for i in range(0, s, chunk)], dim=1)
+    time when it divides S (the same per-position values).  On a mesh
+    (DTensor logits) a vocab that divides the model axis takes
+    :func:`_ce_vocab_sharded`; the means are DTensor reductions."""
+    if ctx is not None and ctx.mesh is not None:
+        if logits.shape[-1] % ctx.model_size == 0:
+            losses = _ce_vocab_sharded(logits, targets, ctx)
+        else:
+            losses = _ce_sharded_rows(logits, targets, ctx)
     else:
-        losses = ce(logits, targets)
+        s = logits.shape[1]
+        if chunk and s % chunk == 0 and s > chunk:
+            losses = torch.cat([_ce(logits[:, i:i + chunk],
+                                    targets[:, i:i + chunk])
+                                for i in range(0, s, chunk)], dim=1)
+        else:
+            losses = _ce(logits, targets)
     if mask is None:
-        return losses.mean()
-    mask = mask.float()
-    return (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = losses.mean()
+    else:
+        mask = mask.float()
+        loss = (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if ctx is not None and ctx.mesh is not None:
+        from torch.distributed.tensor import Replicate
+        loss = loss.redistribute(ctx.mesh, [Replicate()] * ctx.mesh.ndim)
+    return loss
 
 
 # --------------------------------------------------------------------------- #
@@ -418,22 +690,26 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict, ctx: RunContext,
     ``_AUX_COEF`` times the MoE load-balance loss; no cache is written.
     mode="prefill" -> (last_logits (B, V), cache) with a contiguous cache
     tree (the layout of :func:`init_cache`; K/V padded to
-    ``cache_capacity``)."""
+    ``cache_capacity``).  On a mesh everything in and out is a DTensor."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
-    x, positions, prefix_len = embed_inputs(cfg, params, batch)
+    x, positions, prefix_len = embed_inputs(cfg, params, batch, ctx)
+    seq_ax = ctx.model_axis if (ctx.mesh is not None and ctx.zero_sp) \
+        else None
+    x = constrain(x, ctx, seq_ax, None)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x, per_layer, aux = apply_stack(cfg, params, x, ctx, rope, None, mode,
                                     prefix_len, None, cache_capacity)
     if mode == "prefill":
-        logits = unembed(cfg, params, x[:, -1:])
+        x = constrain(x, ctx, None, None)
+        logits = unembed(cfg, params, x[:, -1:], ctx)
         return logits[:, 0], _stack_caches(cfg, per_layer)
-    logits = unembed(cfg, params, x)
+    logits = unembed(cfg, params, x, ctx)
     if cfg.frontend == "vision":
         logits = logits[:, prefix_len:]      # loss over the text suffix only
     loss = cross_entropy(logits, batch["targets"], batch.get("loss_mask"),
-                         ctx.loss_chunk)
+                         ctx.loss_chunk, ctx)
     return loss + _AUX_COEF * aux, {"loss": loss, "aux": aux}
 
 
@@ -449,10 +725,11 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     row onto a paged KV block pool.  K/V are written into the cache in
     place; recurrent state leaves are replaced.  Returns (logits (B, V),
     cache)."""
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, ctx)
     if block_tables is None:
         pos = int(pos)
-        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        rows = 1 if ctx.mesh is not None else x.shape[0]
+        positions = torch.full((rows, 1), pos, device=x.device)
     else:
         positions = pos[:, None]
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -462,7 +739,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                                   block_size=block_size)
     if has_state_rows(cfg):
         cache = _stack_caches(cfg, per_layer, kv_from=cache)
-    return unembed(cfg, params, x)[:, 0], cache
+    return unembed(cfg, params, x, ctx)[:, 0], cache
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:

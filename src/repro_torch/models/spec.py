@@ -2,7 +2,10 @@
 
 ``param_specs(cfg)`` (``models/model.py``) builds a nested dict of
 :class:`ParamSpec` leaves with exactly the reference's key paths and shapes;
-``init_params`` materializes it with an explicit ``torch.Generator``.
+``init_params`` materializes it with an explicit ``torch.Generator``,
+``abstract_params`` gives meta tensors of the same shapes and dtypes (no
+allocation: the dry-run path) and ``logical_axes`` the logical sharding
+axes that ``repro_torch.distributed.sharding`` reads.
 """
 from __future__ import annotations
 
@@ -67,6 +70,16 @@ def init_params(specs, generator: torch.Generator,
             node = node.setdefault(k, {})
         node[last] = make(s)
     return out
+
+
+def abstract_params(specs):
+    """Meta-tensor stand-ins (shape and dtype, no storage)."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), specs)
+
+
+def logical_axes(specs):
+    return map_specs(lambda s: s.axes, specs)
 
 
 def param_count(specs) -> int:

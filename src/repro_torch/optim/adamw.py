@@ -50,18 +50,37 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> Dict:
-    """Zero float32 moments beside every parameter, and step 0 (int32)."""
+    """Zero float32 moments beside every parameter (DTensors at the
+    parameter's placements on a mesh), and step 0 (int32; replicated on a
+    mesh)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
-    dev = _tree_leaves(params)[0].device
+    leaf = _tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    mesh = getattr(leaf, "device_mesh", None)
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            "step": step}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor scalar made whole (replicated) on every rank; a plain
+    tensor as it is."""
+    mesh = getattr(t, "device_mesh", None)
+    if mesh is None:
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(g.float())) for g in _tree_leaves(tree)]
+    sums = [_whole(torch.sum(torch.square(g.float())))
+            for g in _tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 

@@ -671,9 +671,16 @@ def test_fleet_trainer_elastic_resize_and_refusals(tmp_path):
                      elastic_schedule={1: 2}, device="cpu")
     t.run()
     assert t.report.resizes == 1 and t.report.provision_seconds > 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FleetTrainer(cfg, steps_total=2, data_cfg=DataConfig(2, 16),
-                     grad_compression=True, device="cpu")
+    # with no mesh (no data axis to reduce over) compression is off, as in
+    # the reference: the same losses as an uncompressed trainer
+    tc = FleetTrainer(cfg, steps_total=2, data_cfg=DataConfig(2, 16),
+                      grad_compression=True, device="cpu")
+    plain = FleetTrainer(cfg, steps_total=2, data_cfg=DataConfig(2, 16),
+                         device="cpu")
+    sc = tc.run()
+    plain.run()
+    assert not tc._compressed and "ef" not in sc
+    assert tc.report.losses == plain.report.losses
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FleetTrainer(cfg, steps_total=2, data_cfg=DataConfig(2, 16))
