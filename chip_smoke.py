@@ -24,7 +24,10 @@ the card against the host, the train-mode loss through the three
 sequence kernels against the plain path, and the two modality frontends,
 hubert-xlarge (48 layers, d_model 1280, audio stub, masked loss) and
 paligemma-3b (18 layers, d_model 2048, vocab 257216, vision stub,
-prefix-LM).  Phases:
+prefix-LM).  It runs the mesh on one rank and the dry-run on the host,
+and last the paper's own programs (``repro_torch.apps``: Tables 3-4,
+Figures 6-14, the image combiner) and the three ``examples/*_torch.py``
+on the card.  Phases:
 
 1. device   — a CUDA device must be present; prints name and power limit;
 2. build    — one nvcc per kernel source, all started together;
@@ -242,7 +245,32 @@ prefix-LM).  Phases:
               read back: status ok, and the k = 1 / k = 2 extrapolation
               equal to the full-depth FLOPs, bytes and collective bytes;
               then the roofline table against H100 constants (estimates
-              from counting, not measurements).
+              from counting, not measurements);
+28. apps    — the paper's applications (``repro_torch.apps``) on the
+              card: the eager work loop's seconds per iteration; every
+              Table 3 / 4 method at its first APPS_TABLE_SIZES sizes, local
+              and remote over WiFi and 3G through ``ExecutionController``
+              (virtual times, energies, Tx / Rx, boundary input values
+              among those sizes; local and remote values equal; the first
+              size's value held to the CPU's within APPS_CPU_RTOL, integers
+              exactly, mandelbrot's count printed beside the CPU's); the
+              §7.3 applications at the paper's sizes under the four
+              scenarios (sudoku, 8-queens over 8**8 = 92 solutions, 32
+              faces, 64 x 1024 file bytes; every scenario's value equal,
+              the face, virus and sudoku values equal to a CPU run of the
+              same functions); the image-combiner escalation at sides 256
+              to 4096 (venue and escalations per side, every canvas equal
+              to the two images);
+29. parallel — Figures 12-14 (8-queens over 8**8, 384 faces, 256 x 2048
+              file bytes) forced remote at k = 1, 2, 4 and 8 clones: times,
+              energies, overheads, speedups; each merged value equal to
+              k = 1's; then §5.3's measured analogue (a CUDA-graph capture
+              of a 256 x 256 step against its replay);
+30. examples — examples/quickstart_torch.py, offload_nqueens_torch.py (n
+              8) and elastic_serving_torch.py on the card, the last on
+              full-width qwen2.5-3b in bfloat16 with a one-block shared
+              system prompt on its Poisson trace: 16/16 served, and
+              paged_decode, paged_prefill and flash_attention launched.
 
 Prints, before the last line, one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -299,7 +327,7 @@ REPLACES = {
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:61",
 }
-PHASES = 27
+PHASES = 30
 # phase 18: the ServingEngine placements and the escalation engine's
 # capacity (its bf16 cache is past the clone types' 100 MiB heap)
 PLACEMENTS = {"local": dict(force="local"), "remote": dict(force="remote"),
@@ -352,6 +380,12 @@ MESH_PARITY_LAYERS = 4
 MESH_RTOL = 1e-5
 MESH_MOE_SHAPE = (4, 128)
 MESH_FLEET_STEPS = 4
+# phases 28-29: the paper's applications; Table 3 / 4 methods at their
+# first APPS_TABLE_SIZES sizes, the work loop timed over APPS_LOOP_ITERS
+# iterations, card vs CPU float results within APPS_CPU_RTOL
+APPS_TABLE_SIZES = 2
+APPS_LOOP_ITERS = 2000
+APPS_CPU_RTOL = 1e-4
 # phase 27: where the dry-run records go, and its (arch, shape,
 # multi-pod) cells
 DRYRUN_DIR = ROOT / "benchmarks" / "results" / "dryrun_torch"
@@ -2937,6 +2971,215 @@ def dryrun_phase():
         log(f"  {line}")
 
 
+# --------------------------------------------------------------------------- #
+# phases 28-30: the paper's applications, parallel clones and the examples
+# --------------------------------------------------------------------------- #
+def _same(got, want):
+    """Exact equality of two workload results (tensors on any device,
+    ints, or tuples of them)."""
+    import torch
+    if isinstance(got, tuple):
+        return all(_same(g, w) for g, w in zip(got, want))
+    if isinstance(got, torch.Tensor) or isinstance(want, torch.Tensor):
+        got, want = (torch.as_tensor(x).cpu() for x in (got, want))
+        return got.dtype == want.dtype and torch.equal(got, want)
+    return got == want
+
+
+def _close(got, want, rtol):
+    import torch
+    got, want = (torch.as_tensor(x).cpu() for x in (got, want))
+    if not got.dtype.is_floating_point:
+        return got.dtype == want.dtype and torch.equal(got, want)
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=rtol, atol=0)
+
+
+def work_loop_rate(torch):
+    """Seconds per iteration of the eager work loop on the card (its
+    ``fori_loop`` is a Python loop of addmv + tanh launches here)."""
+    from repro_torch.apps.workloads import _work_loop
+    out = {}
+    for size in (64, 8):
+        _work_loop(16, size, "cuda").item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _work_loop(APPS_LOOP_ITERS, size, "cuda").item()
+        torch.cuda.synchronize()
+        out[size] = (time.perf_counter() - t0) / APPS_LOOP_ITERS
+    return out
+
+
+def tables_phase(torch):
+    """Phase 28 (a): every Table 3 / 4 method at its first two sizes, local
+    and remote over WiFi and 3G on the card: times, energies, boundary
+    input values among those sizes, Tx / Rx; local and remote values
+    equal, and the card's value at the first size held to the CPU's."""
+    from repro_torch.apps import workloads as W
+    from repro_torch.apps.biv_tables import MICRO_SIZES, REALISTIC_SIZES
+    from repro_torch.core import ExecutionController, Policy
+    sizes = {**MICRO_SIZES, **REALISTIC_SIZES}
+    card = {**W.micro_methods("cuda"), **W.realistic_methods("cuda")}
+    host = {**W.micro_methods("cpu"), **W.realistic_methods("cpu")}
+    for name, rm in card.items():
+        bivs = {}
+        for link in ("wifi-local", "3g"):
+            ec = ExecutionController(policy=Policy.EXEC_TIME, link=link,
+                                     device="cuda")
+            bivs[link] = None
+            for n in sizes[name][:APPS_TABLE_SIZES]:
+                loc = ec.execute(rm, n, force="local")
+                rem = ec.execute(rm, n, force="remote")
+                if not _same(loc.value, rem.value):
+                    fail(f"apps: {name}({n}) local {loc.value} != remote "
+                         f"{rem.value} on the card")
+                log(f"  {name}({n}) {link}: local {loc.time_s:.6g} s "
+                    f"{loc.energy_j:.6g} J, remote {rem.time_s:.6g} s "
+                    f"{rem.energy_j:.6g} J (virtual), Tx {rem.tx_bytes} Rx "
+                    f"{rem.rx_bytes}, value {float(rem.value):.8g}")
+                if bivs[link] is None and rem.time_s < loc.time_s:
+                    bivs[link] = n
+        n = sizes[name][0]
+        got, want = rm.fn(n), host[name].fn(n)
+        if name == "mandelbrot":
+            # complex64 |z| near 2 may round apart between the two
+            # devices' abs; the difference is printed, not bounded
+            log(f"  mandelbrot({n}): card {int(got)}, CPU {int(want)}")
+        elif not _close(got, want, APPS_CPU_RTOL):
+            fail(f"apps: {name}({n}) card {got} vs CPU {want}")
+        log(f"  {name}: boundary input value among "
+            f"{sizes[name][:APPS_TABLE_SIZES]}: WiFi {bivs['wifi-local']}, "
+            f"3G {bivs['3g']}")
+
+
+def apps_phase(torch):
+    """Phase 28: Tables 3 / 4 (``tables_phase``), the §7.3 applications at
+    the paper's sizes under the four scenarios, and the image-combiner
+    escalation."""
+    from repro_torch.apps import applications as A
+    from repro_torch.apps.harness import SCENARIOS, controller_for
+    rates = work_loop_rate(torch)
+    log(f"  work loop on the card: {rates[64] * 1e6:.2f} us per iteration "
+        f"at size 64, {rates[8] * 1e6:.2f} at size 8 "
+        f"({APPS_LOOP_ITERS} iterations, host clock)")
+    tables_phase(torch)
+    host = {name: (rm, args) for name, rm, args in A._apps("cpu")}
+    for name, rm, args in A._apps("cuda"):
+        first = None
+        for scen in SCENARIOS:
+            ec = controller_for(scen, device="cuda")
+            res = ec.execute(rm, *args, force="local" if scen == "phone"
+                             else "remote")
+            log(f"  {name} @ {scen}: {res.time_s:.6g} s, "
+                f"{res.energy_j:.6g} J, overhead {res.overhead_s:.6g} s on "
+                f"{res.venue} (virtual); energy "
+                f"{ {k: round(v, 6) for k, v in res.energy.items()} }")
+            if first is None:
+                first = res.value
+            elif not _same(res.value, first):
+                fail(f"apps: {name} @ {scen} differs from @ phone")
+        if name == "nqueens_8":
+            if int(first) != 92:
+                fail(f"apps: 8-queens over 8**8 gave {int(first)}, not 92")
+            log("  nqueens_8: 92 solutions in every scenario")
+            continue
+        rm_cpu, args_cpu = host[name]
+        want = rm_cpu.fn(*args_cpu)
+        if not _same(first, want):
+            fail(f"apps: {name} on the card {first} != the CPU's {want}")
+        if name == "sudoku" and not bool(first[1]):
+            fail("apps: the sudoku was not solved")
+        shown = [int(x) for x in first.reshape(-1)[:8]] if name == \
+            "face_detection_32" else int(first) if name == "virus_scan" \
+            else "solved"
+        log(f"  {name}: card equal to CPU ({shown})")
+    want = {256: ("main", 0)}
+    for side, a, b, res in A.escalations("cuda"):
+        canvas = res.value
+        log(f"  combiner {side}x{side}+{side}x{side}: venue {res.venue}, "
+            f"escalations {res.escalations}, {res.time_s:.6g} s (virtual)")
+        if (res.venue, res.escalations) != want.get(side, ("x8large", 4)):
+            fail(f"apps: combiner at side {side} on {res.venue} after "
+                 f"{res.escalations} escalations")
+        if canvas.shape != (side, 2 * side) or not (
+                torch.equal(canvas[:, :side], a)
+                and torch.equal(canvas[:, side:], b)):
+            fail(f"apps: the {side} canvas is not the two images")
+    log("  every canvas, 4096 x 8192 included, equals the two images")
+
+
+def parallel_phase(torch):
+    """Phase 29: Figures 12-14 at k = 1, 2, 4, 8 clones on the card: times,
+    energies and overheads; the merged values equal k = 1's exactly.
+    Then §5.3's measured analogue (CUDA-graph capture against replay)."""
+    from repro_torch.apps import parallel_clones as P
+    from repro_torch.apps.harness import controller_for
+    for name, rm, args in P.parallel_apps("cuda"):
+        one = None
+        for k in P.CLONES:
+            ec = controller_for("wifi-local", provision=10, device="cuda")
+            res = ec.execute(rm, *args, force="remote", n_clones=k)
+            if one is None:
+                one, t1 = res.value, res.time_s
+            merged = res.value
+            same = (torch.equal(merged, one) if name.startswith("face")
+                    else merged == int(one))
+            log(f"  {name} k={k}: {res.time_s:.6g} s, {res.energy_j:.6g} J, "
+                f"overhead {res.overhead_s:.6g} s (virtual), speedup "
+                f"{t1 / res.time_s:.3f}x, {res.redispatches} redispatches; "
+                f"merged value equal to k = 1: {same}")
+            if not same:
+                fail(f"parallel: {name} at k = {k} differs from k = 1")
+        if name == "nqueens_8" and int(one) != 92:
+            fail(f"parallel: 8-queens gave {int(one)}")
+    lines, _ = P.run_vm_states("cuda")
+    for line in lines[-3:]:
+        log(f"  {line.strip()}")
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch):
+    """Phase 30: the three examples' bodies on the card (their default
+    device), with elastic_serving at full-width qwen2.5-3b in bf16 and a
+    one-block shared system prompt on its Poisson trace (the prefix cache
+    hits, so suffixes run the paged prefill; without it the example's
+    random prompts reach flash and paged decode only).  Returns the
+    attention kernels' launches during that serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    for name, run in (("quickstart_torch", lambda m: m.run()),
+                      ("offload_nqueens_torch", lambda m: m.run(8))):
+        t0 = time.perf_counter()
+        run(_example(name))
+        torch.cuda.synchronize()
+        log(f"  {name}: {time.perf_counter() - t0:.2f} s")
+    qcfg = get_config("qwen2.5-3b")
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    report = _example("elastic_serving_torch").run(qcfg,
+                                                    prefix_len=BLOCK)
+    torch.cuda.synchronize()
+    got = dict(ops.launches)
+    log(f"  elastic_serving_torch: qwen2.5-3b {qcfg.n_layers} layers "
+        f"{qcfg.dtype}, {len(report.completions)}/16 served in "
+        f"{time.perf_counter() - t0:.2f} s; launches {got}")
+    if len(report.completions) != 16:
+        fail(f"examples: elastic serving served {len(report.completions)}"
+             "/16")
+    for kernel in ("paged_decode", "paged_prefill", "flash_attention"):
+        if got[kernel] <= 0:
+            fail(f"examples: {kernel} never launched by elastic serving")
+    return got
+
+
 def main():
     t_start = time.perf_counter()
     import gc
@@ -3197,15 +3440,42 @@ def main():
     dryrun_phase()
     log(f"  phase 27 {time.perf_counter() - t27:.1f} s")
 
+    log(f"[28/{PHASES} apps] Tables 3-4 at their first "
+        f"{APPS_TABLE_SIZES} sizes, the §7.3 applications at paper size "
+        "under four scenarios, the image-combiner escalation")
+    t28 = time.perf_counter()
+    apps_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 28 {time.perf_counter() - t28:.1f} s")
+
+    log(f"[29/{PHASES} parallel] Figures 12-14: 8-queens, 384 faces, 256 "
+        "files at k = 1, 2, 4, 8 clones; §5.3's graph capture / replay")
+    t29 = time.perf_counter()
+    parallel_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 29 {time.perf_counter() - t29:.1f} s")
+
+    log(f"[30/{PHASES} examples] quickstart, offload_nqueens and "
+        "elastic_serving (qwen2.5-3b full width, bfloat16) on the card")
+    t30 = time.perf_counter()
+    example_launches = examples_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 30 {time.perf_counter() - t30:.1f} s")
+
     # launches per serving path, each counted from 0 over its own run
     # (spec: both drafts' runs; disagg: both handoff runs; chaos: the five
-    # fault runs and the gated run; offload: phase 18's five serves)
+    # fault runs and the gated run; offload: phase 18's five serves;
+    # elastic: phase 30's elastic_serving example)
     by_path = {
         name: {"smollm": launches[name], "qwen": qwen_launches[name],
                "spec": sum(r[name] for r in spec_launches.values()),
                "disagg": sum(r[name] for r in disagg_launches.values()),
                "chaos": sum(r[name] for r in chaos_launches.values()),
-               "olmoe": olmoe_launches[name]}
+               "olmoe": olmoe_launches[name],
+               "elastic": example_launches[name]}
         for name in ("paged_decode", "paged_prefill", "flash_attention")}
     by_path["flash_attention"]["recurrentgemma"] = \
         rg_launches["flash_attention"]

@@ -1,9 +1,11 @@
 """Import guard and device policy of the PyTorch port.
 
-No file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax`` or
-anything of the reference package ``repro``; importing every port module
-in a fresh interpreter leaves ``jax`` out of ``sys.modules``; entry points
-raise instead of falling back to the CPU when no GPU is present.
+No file of ``src/repro_torch`` (nor ``chip_smoke.py`` and the
+``examples/*_torch.py`` entry points) imports ``jax``, anything of the
+reference package ``repro`` or the reference's ``benchmarks`` scripts;
+importing every port module in a fresh interpreter leaves ``jax`` out of
+``sys.modules``; entry points raise instead of falling back to the CPU
+when no GPU is present.
 """
 import ast
 import pathlib
@@ -15,8 +17,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "examples" / "train_smollm_torch.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")
@@ -37,14 +39,16 @@ def _imported(path):
 def test_no_jax_or_reference_imports(path):
     for name in _imported(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "repro"), (path, name)
+        assert root not in ("jax", "jaxlib", "repro", "benchmarks"), \
+            (path, name)
 
 
 def test_fresh_interpreter_import_leaves_jax_out():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+            "                                    'benchmarks'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}

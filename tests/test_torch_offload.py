@@ -308,9 +308,23 @@ def test_parallelization_reduces_time():
         return min((ec.execute(rm, x, force="remote", n_clones=k)
                     for _ in range(3)), key=lambda r: r.time_s)
 
+    runs = []
+    run = ec.parallelizer.run
+
+    def recorded(*a, **kw):
+        runs.append(run(*a, **kw))
+        return runs[-1]
+
+    ec.parallelizer.run = recorded
     r1 = best(1)
     r4 = best(4)
-    assert r4.time_s < r1.time_s
+    par = min(runs, key=lambda p: p.makespan_s)
+    assert r4.time_s < r1.time_s, (
+        f"r1 {r1.time_s} (overhead {r1.overhead_s}), r4 {r4.time_s} "
+        f"(overhead {r4.overhead_s}); k = 4 shard times {par.shard_times}, "
+        f"resume_s {par.resume_s}, sync_s {par.sync_s}; host_eff_flops "
+        f"{venues.host_eff_flops(CPU)}; torch threads "
+        f"{torch.get_num_threads()}")
     assert r4.n_clones == 4 and r4.venue == "main x4"
 
 

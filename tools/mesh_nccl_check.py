@@ -12,12 +12,21 @@ and 1 x 4, runs one train step of each configuration below at full width
 DTensor state (``tp`` profile) and, on every rank, the one-device step
 from the same weights and batch (pipeline batch 0, 8 x 256; MoE at
 capacity factor E/k, so no expert drops).  It prints
-their losses and grad norms, the relative differences, and the median
+their losses and grad norms, the relative differences, each gradient
+leaf's largest difference over that leaf's largest entry (the gradients
+the two steps hand to AdamW, the worst leaf named), and the median
 of MEASURED further sharded steps (host clock between synchronisations).
 Then ``FleetTrainer(mesh=2x2, grad_compression=True)`` (two data ranks:
 the int8 + error-feedback mean) runs 3 steps.  Rank 0 prints one JSON
 line per case.  ``--cpu`` runs the same on a gloo group with reduced
 configurations (a check of the script itself).
+
+Exits non-zero when a case is outside its bounds (``BOUNDS``: the mesh's
+limits of PERF.md section 2): float32 loss and grad norm within 1e-5
+relative and every gradient leaf within 2e-5 of its largest entry; bf16
+loss and grad norm within 1e-2 relative (its leaves are printed, not
+bounded: each side rounds to bf16 on its own).  Every case runs and is
+printed before the verdict.
 """
 import argparse
 import dataclasses
@@ -40,12 +49,22 @@ CASES = (("smollm-360m", None, "bfloat16"),
 MESHES = ((2, 2), (1, 4))
 BATCH, SEQ = 8, 256
 MEASURED = 3
+# dtype -> (loss and grad-norm relative bound, gradient-leaf bound or None)
+BOUNDS = {"float32": (1e-5, 2e-5), "bfloat16": (1e-2, None)}
 
 
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _paths(tree, prefix=""):
+    """Leaf paths of a nested dict in ``model._tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [prefix]
 
 
 def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
@@ -87,6 +106,18 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
         if rank == 0:
             print(json.dumps(row), flush=True)
 
+    # the gradients each train step hands to AdamW, whole on every rank
+    stepped = {}
+    update = adamw.update
+
+    def spy_update(opt_cfg, grads, opt_state, params):
+        stepped["grads"] = [g.full_tensor() if hasattr(g, "full_tensor")
+                            else g.clone() for g in model._tree_leaves(grads)]
+        return update(opt_cfg, grads, opt_state, params)
+
+    adamw.update = spy_update
+    failures = []
+
     try:
         for shape in MESHES:
             mesh = make_mesh(shape, device_type=kind)
@@ -108,6 +139,7 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
                                            S.make_context(dev, **kw))
                 _, m0 = plain({"params": copy.deepcopy(params),
                                "opt": adamw.init(params)}, batch)
+                g0 = stepped.pop("grads")
                 pp = shd.distribute_tree(params, S.param_shardings(cfg, mesh),
                                          mesh)
                 specs = shd.input_shardings(batch, mesh, b)
@@ -117,6 +149,12 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
                                           S.make_context(mesh=mesh, **kw))
                 state = {"params": pp, "opt": adamw.init(pp)}
                 state, m1 = step(state, bd)
+                g1 = stepped.pop("grads")
+                errs = [float((a.float() - b.float()).abs().max())
+                        / max(float(b.float().abs().max()), 1e-30)
+                        for a, b in zip(g1, g0)]
+                worst = max(range(len(errs)), key=errs.__getitem__)
+                del g0, g1
                 times = []
                 for _ in range(MEASURED):
                     sync()
@@ -126,18 +164,31 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
                     times.append(time.perf_counter() - t0)
                 vals = {k: (float(m1[k]), float(m0[k]))
                         for k in ("loss", "grad_norm")}
-                report({"mesh": "x".join(map(str, shape)), "arch": cfg.name,
-                        "layers": cfg.n_layers, "dtype": dtype,
-                        **{f"{k}_mesh": v[0] for k, v in vals.items()},
-                        **{f"{k}_plain": v[1] for k, v in vals.items()},
-                        **{f"{k}_rel": abs(v[0] - v[1]) / abs(v[1])
-                           for k, v in vals.items()},
-                        "step_ms_median": 1e3 * float(np.median(times)),
-                        "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                                    if not cpu else None)})
+                rel = {k: abs(v[0] - v[1]) / abs(v[1])
+                       for k, v in vals.items()}
+                row = {"mesh": "x".join(map(str, shape)), "arch": cfg.name,
+                       "layers": cfg.n_layers, "dtype": dtype,
+                       **{f"{k}_mesh": v[0] for k, v in vals.items()},
+                       **{f"{k}_plain": v[1] for k, v in vals.items()},
+                       **{f"{k}_rel": r for k, r in rel.items()},
+                       "leaf_err": errs[worst],
+                       "leaf_worst": _paths(params)[worst],
+                       "step_ms_median": 1e3 * float(np.median(times)),
+                       "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                                   if not cpu else None)}
+                rel_max, leaf_max = BOUNDS[dtype]
+                bad = [k for k, r in rel.items() if not r <= rel_max]
+                if leaf_max is not None and not errs[worst] <= leaf_max:
+                    bad.append("leaf_err")
+                row["ok"] = not bad
+                report(row)
+                if bad:
+                    failures.append(f"{row['arch']} {dtype} at {row['mesh']}"
+                                    f": {', '.join(bad)}")
                 del state, pp, params
                 if not cpu:
                     torch.cuda.empty_cache()
+        adamw.update = update
         mesh = make_mesh((2, 2), device_type=kind)
         cfg = get_config("smollm-360m")
         cfg = reduced_config(cfg) if cpu else dataclasses.replace(
@@ -151,6 +202,9 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
                 "losses": tr.report.losses, "ef_max": ef})
     finally:
         dist.destroy_process_group()
+    if failures and rank == 0:
+        print(f"mesh_nccl_check: FAIL: {'; '.join(failures)}", flush=True)
+        sys.exit(1)
 
 
 def main() -> None:
