@@ -238,7 +238,13 @@ on the card.  Phases:
               reference); (d) ``hlo_analysis.cost_metrics`` of (a)'s step
               on the card against the same step traced on fake tensors
               under a fake one-rank group: FLOPs equal exactly; the traced
-              peak beside ``torch.cuda.max_memory_allocated``;
+              peak beside ``torch.cuda.max_memory_allocated``; (e)
+              rwkv6-7b and recurrentgemma-2b at full width on
+              MESH_PARITY_LAYERS layers in float32 through the recurrent
+              blocks' split bodies (one rank splits nothing): a train step
+              (loss, grad norm), then a prefill of MESH_REC_SHAPE and
+              MESH_DECODE_STEPS decode steps (logits, every cache leaf)
+              against the mesh-free path within MESH_RTOL;
 27. dryrun  — on the host, one subprocess per cell, all started together:
               ``python -m repro_torch.launch.dryrun`` for DRYRUN_CELLS (a
               fake group of 256 or 512 ranks, fake tensors); each record
@@ -380,6 +386,8 @@ MESH_PARITY_LAYERS = 4
 MESH_RTOL = 1e-5
 MESH_MOE_SHAPE = (4, 128)
 MESH_FLEET_STEPS = 4
+MESH_REC_SHAPE = (4, 64)          # phase 26 (e): prompts, batch x tokens
+MESH_DECODE_STEPS = 2
 # phases 28-29: the paper's applications; Table 3 / 4 methods at their
 # first APPS_TABLE_SIZES sizes, the work loop timed over APPS_LOOP_ITERS
 # iterations, card vs CPU float results within APPS_CPU_RTOL
@@ -2723,6 +2731,71 @@ def mesh_train_pair(torch, cfg, mesh, times=None):
     return m0, m1, step, state1, bd
 
 
+def mesh_recurrent(torch, mesh):
+    """Phase 26 (e): the recurrent blocks' mesh bodies against the
+    mesh-free path, float32, train and prefill + decode."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model
+    dev = torch.device("cuda")
+    b, s = MESH_REC_SHAPE
+    cap = s + MESH_DECODE_STEPS
+
+    def on_mesh(t):
+        spec = shd.input_shardings({"t": t}, mesh, b)["t"]
+        return shd.distribute(t, shd.placements(spec, mesh), mesh)
+
+    def rel_max(got, want):
+        return float((got.full_tensor() - want).abs().max()
+                     / want.abs().max().clamp(min=1e-30))
+
+    for name in ("rwkv6-7b", "recurrentgemma-2b"):
+        rc = dataclasses.replace(get_config(name), dtype="float32",
+                                 n_layers=MESH_PARITY_LAYERS)
+        m0, m1, *_ = mesh_train_pair(torch, rc, mesh)
+        loss = (float(m1["loss"]), float(m0["loss"]))
+        gnorm = (float(m1["grad_norm"]), float(m0["grad_norm"]))
+        del m0, m1
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init(rc, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        toks = torch.randint(0, rc.vocab_size, (b, s), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1), dtype=torch.int32)
+        plain = S.make_context(dev)
+        ctx = S.make_context(mesh=mesh)
+        pp = shd.distribute_tree(params, S.param_shardings(rc, mesh), mesh)
+        logits = 0.0
+        with torch.no_grad():
+            lw, cw = model.forward(rc, params, {"tokens": toks}, plain,
+                                   "prefill", cache_capacity=cap)
+            lg, cg = model.forward(rc, pp, {"tokens": on_mesh(toks)}, ctx,
+                                   "prefill", cache_capacity=cap)
+            logits = rel_max(lg, lw)
+            for t in range(MESH_DECODE_STEPS):
+                # both paths take the mesh-free path's token
+                nxt = lw.argmax(-1, keepdim=True).to(torch.int32)
+                lw, cw = model.decode_step(rc, params, cw, nxt, s + t, plain)
+                lg, cg = model.decode_step(rc, pp, cg, on_mesh(nxt), s + t,
+                                           ctx)
+                logits = max(logits, rel_max(lg, lw))
+            cache = max(rel_max(a, w) for a, w in
+                        zip(model._tree_leaves(cg), model._tree_leaves(cw)))
+        log(f"  (e) {name} float32, {rc.n_layers} layers: train loss "
+            f"{loss[0]!r} / {loss[1]!r} (rel {_rel(*loss):.2e}), grad norm "
+            f"rel {_rel(*gnorm):.2e}; prefill of {b} x {s} + "
+            f"{MESH_DECODE_STEPS} decode steps: logits rel max diff "
+            f"{logits:.3e}, cache {cache:.3e}")
+        if max(_rel(*loss), _rel(*gnorm), logits, cache) > MESH_RTOL:
+            fail(f"mesh (e): float32 {name} off the mesh-free path")
+        del params, pp, cw, cg, lw, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def mesh_phase(torch, cfg, ocfg):
     """Phase 26 (see the module docstring)."""
     import gc
@@ -2889,6 +2962,7 @@ def mesh_phase(torch, cfg, ocfg):
         del tr
         gc.collect()
         torch.cuda.empty_cache()
+        mesh_recurrent(torch, mesh)
     finally:
         dist.destroy_process_group()
     # (d) the same step traced on fake tensors under a fake one-rank group
@@ -3427,7 +3501,8 @@ def main():
     log(f"[26/{PHASES} mesh] one-rank NCCL group, 1 x 1 mesh: smollm-360m "
         "train step and olmoe-1b-7b prefill / train loss through the mesh "
         "path vs mesh-free; compressed_psum; FleetTrainer(mesh); FLOPs card "
-        "vs fake trace")
+        "vs fake trace; rwkv6-7b and recurrentgemma-2b train, prefill and "
+        "decode through the recurrent mesh bodies")
     t26 = time.perf_counter()
     mesh_phase(torch, cfg, ocfg)
     gc.collect()

@@ -20,8 +20,33 @@ body runs on local tensors with explicit collectives, Megatron style:
 ``copy_to`` where a tensor replicated over the model axis enters sharded
 work, ``reduce_from`` where partial sums leave it.  A :class:`MeshPlan`
 tells the body's functions (:func:`attn_apply`, :func:`_mlp_sharded`,
-``moe.moe_apply``) how their inputs are laid out.  Train, prefill and
+``moe.moe_apply``, and through ``tp`` the recurrent mixers of
+``rwkv6`` / ``rglru``) how their inputs are laid out.  Train, prefill and
 contiguous decode run on a mesh; the paged and chunk modes do not.
+
+The recurrent blocks split over the model axis where the reference's
+rules place them (``heads``, ``mlp``, ``lru`` -> model) and M divides
+the dimension; otherwise that part runs whole on every rank, as the
+rules fall back to replication.  Their reductions over the model axis,
+each with the gradient leaves it sums:
+
+- RWKV-6 time mix, H/M heads a rank: f on the normed input (its
+  backward all-reduce gives ``norm1`` and everything before the block
+  their gradient); the ``Partial`` gradients of ``tm/mu``, ``tm/wA``
+  (used whole) and ``tm/w0``, ``tm/wB`` (the local heads' columns
+  sliced inside the body), reduced by DTensor; g on the ``wo`` product
+  (forward only).  ``wr/wk/wv/wg``, ``u``, ``gn_*`` and ``wo`` take no
+  model-axis sum: each rank owns its heads' gradients.
+- RWKV-6 channel mix, d_ff/M a rank: f on ``xk`` (``cm/mu_k``, and
+  ``norm2`` through the key branch); g on the ``wv`` product before
+  ``rr * vv`` (forward only).  ``wr`` and ``mu_r`` run whole.
+- RG-LRU, R/M channels a rank: f on the normed input (``norm1``); the
+  all-gather of the conv output for the gate products, whose backward
+  reduce-scatter sums the ``wa`` / ``wi`` branches' share of the
+  ``conv_w``, ``conv_b`` and ``wx`` gradients; g on the ``wout``
+  product (forward only).  Its dense ``ffn`` is an attention block's
+  (:func:`_mlp_sharded`: f on the normed input, ``norm2``; g after
+  ``wo``).
 """
 from __future__ import annotations
 
@@ -286,17 +311,18 @@ def _block_body(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                 plan: Optional["MeshPlan"] = None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(x, params["norm1"], cfg.norm_type)
+    tp = plan.tp if plan is not None and plan.rec else None
     if kind == "attn":
         mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
                                     mode, prefix_len, pos, cache_capacity,
                                     block_tables, block_size, plan=plan)
     elif kind == "rglru":
         mix, new_cache = rglru.rglru_block_apply(params["rec"], h, cfg, ctx,
-                                                 cache, mode)
+                                                 cache, mode, tp)
     elif kind == "rwkv":
         mix, tm_cache = rwkv6.rwkv_time_apply(
             params["tm"], h, cfg, ctx,
-            cache["tm"] if cache is not None else None, mode)
+            cache["tm"] if cache is not None else None, mode, tp)
     else:
         raise ValueError(kind)
     x = x + mix
@@ -304,7 +330,8 @@ def _block_body(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
     if kind == "rwkv":
         ffn, cm_cache = rwkv6.rwkv_channel_apply(
             params["cm"], h2, cfg,
-            cache["cm"] if cache is not None else None, mode)
+            cache["cm"] if cache is not None else None, mode,
+            plan.tp if plan is not None and _ffn_split(cfg, plan) else None)
         new_cache = ({"tm": tm_cache, "cm": cm_cache}
                      if tm_cache is not None else None)
     elif kind == "attn" and cfg.is_moe:
@@ -349,7 +376,8 @@ class MeshPlan:
     against a cache whose sequence is split over the model axis: partial
     softmax per rank, combined) or ``"rep"`` (everything replicated);
     ``cache_dim``: the cache dim split over the model axis (1: sequence,
-    2: KV heads) or None."""
+    2: KV heads) or None; ``rec``: the recurrent mixer (RWKV-6's time mix
+    over heads, RG-LRU over its channels) split over the model axis."""
 
     mesh: Any
     model_axis: str
@@ -359,6 +387,7 @@ class MeshPlan:
     attn: str
     cache_dim: Optional[int]
     fsdp: bool
+    rec: bool = False
 
     @property
     def model_size(self) -> int:
@@ -367,6 +396,32 @@ class MeshPlan:
     @property
     def model_rank(self) -> int:
         return shd.axis_index(self.mesh, self.model_axis)
+
+    @property
+    def tp(self):
+        """(mesh, model axis): the recurrent bodies' ``tp`` argument."""
+        return self.mesh, self.model_axis
+
+
+def _rec_split(kind: str, cfg: ModelConfig, msz: int) -> bool:
+    """Whether a recurrent mixer splits over a model axis of ``msz``:
+    RWKV-6 over its heads, RG-LRU over its lru width (= d_model)."""
+    if kind == "rwkv":
+        return cfg.n_heads % msz == 0
+    return kind == "rglru" and cfg.d_model % msz == 0
+
+
+def _ffn_split(cfg: ModelConfig, plan: MeshPlan) -> bool:
+    """Whether a dense feed-forward (or RWKV-6's channel mix) splits d_ff
+    over the model axis."""
+    return cfg.d_ff % plan.model_size == 0 and not plan.seq_sharded
+
+
+# the recurrent cache leaves split over the model axis, and on which dim
+_REC_CACHE_DIM = {"tm/s": 1, "h": 1, "conv": 2}
+# RWKV-6 time-mix leaves used whole by the heads-split body (gradients
+# partial over the model axis); the others hold this rank's heads
+_TM_WHOLE = ("mu", "w0", "wA", "wB")
 
 
 def _plc(ctx: RunContext, dp, model):
@@ -397,9 +452,22 @@ def _leaf_roles(kind: str, path: str, cfg: ModelConfig, plan: MeshPlan):
     (``("S", 1)``)."""
     rep = "P" if plan.seq_sharded else "R"
     top, _, name = path.partition("/")
-    if kind != "attn" or top.startswith("norm"):
+    if top.startswith("norm"):
         return rep, rep, "R"
     msz = plan.model_size
+    if top in ("tm", "rec"):
+        if not plan.rec:
+            return "R", "R", "R"
+        if name in _TM_WHOLE:
+            return "R", "P", "R"
+        d = 1 if name in ("wr", "wk", "wv", "wg", "wx", "wy", "conv_w",
+                          "wa", "wi") else 0
+        return ("S", d), ("S", d), "R"
+    if top == "cm":
+        if name in ("wk", "wv") and _ffn_split(cfg, plan):
+            d = 1 if name == "wk" else 0
+            return ("S", d), ("S", d), "R"
+        return "R", "R", "R"
     if top == "attn":
         if plan.attn == "heads":
             kv_split = cfg.n_kv_heads % msz == 0
@@ -418,7 +486,7 @@ def _leaf_roles(kind: str, path: str, cfg: ModelConfig, plan: MeshPlan):
         d = 0 if ep else (2 if name in ("wi", "wg") else 1)
         data = "R" if plan.fsdp or name == "wo" else ("S", 1)
         return ("S", d), ("S", d), data
-    if cfg.d_ff % msz == 0 and not plan.seq_sharded:
+    if _ffn_split(cfg, plan):
         d = 1 if name in ("wi", "wg") else 0
         return ("S", d), ("S", d), "R"
     return rep, rep, "R"
@@ -528,13 +596,13 @@ def _block_sharded(kind: str, params: dict, x, cfg: ModelConfig,
     elif mode == "decode":
         cache_plc = {p: t.placements for p, t in _flat(cache)}
     cache_dim = None
+    m_idx = mesh.mesh_dim_names.index(ctx.model_axis)
     if kind == "attn" and cache_plc:
-        m_idx = mesh.mesh_dim_names.index(ctx.model_axis)
         pk = cache_plc["k"][m_idx]
         cache_dim = pk.dim if pk.is_shard() else None
     plan = MeshPlan(mesh, ctx.model_axis, tuple(ctx.dp_axes), batch_sharded,
                     seq_sharded, _attn_mode(cfg, ctx, mode, s, cache_dim),
-                    cache_dim, ctx.fsdp_weights)
+                    cache_dim, ctx.fsdp_weights, _rec_split(kind, cfg, msz))
     dp_p = Shard(0) if batch_sharded else Replicate()
     x_plc = _plc(ctx, dp_p, Shard(1) if seq_sharded else Replicate())
 
@@ -543,37 +611,32 @@ def _block_sharded(kind: str, params: dict, x, cfg: ModelConfig,
     in_plc = [_leaf_placements(u, d, ctx) for u, _, d in roles]
     grad_plc = [_leaf_grad_placements(g, d, ctx, plan) for _, g, d in roles]
     cpaths = sorted(cache_plc)
+    # recurrent state in the body's layout: split with the mixer, else
+    # whole over the model axis (the carried tokens always whole)
+    body_m = {p: (Shard(_REC_CACHE_DIM[p]) if plan.rec
+                  and p in _REC_CACHE_DIM else Replicate()) for p in cpaths}
     if mode == "decode":
         cache_leaves = [dict(_flat(cache))[p] for p in cpaths]
         # attention reads and writes its cache shard in place; recurrent
-        # state enters whole over the model axis and leaves as stored
+        # state enters in the body's layout and leaves as stored
         cache_in_plc = {p: (cache_plc[p] if kind == "attn"
-                            else _plc(ctx, dp_p, Replicate()))
+                            else _plc(ctx, dp_p, body_m[p]))
                         for p in cpaths}     # sorted, as cache_leaves
     else:
         cache_leaves = []
-    ctx_local = dataclasses.replace(ctx, mesh=None)
     n_par = len(leaves)
-    m_idx = mesh.mesh_dim_names.index(ctx.model_axis)
 
     def body(xl, cos, sin, *rest):
         p = _unflat(paths, rest[:n_par])
         c = (_unflat(cpaths, rest[n_par:]) if mode == "decode" else None)
-        if kind == "attn":
-            xo, nc, aux = _block_body(kind, p, xl, cfg, ctx, (cos, sin), c,
-                                      mode, prefix_len, pos, cache_capacity,
-                                      plan=plan)
-        else:
-            xo, nc, aux = _block_body(kind, p, xl, cfg, ctx_local,
-                                      (cos, sin), c, mode, prefix_len, pos,
-                                      cache_capacity)
-            if nc is not None:       # whole state -> stored model shards
-                flat = dict(_flat(nc))
-                nc = _unflat(cpaths, [
-                    shd.split_to(flat[q], mesh, ctx.model_axis,
-                                 cache_plc[q][m_idx].dim)
-                    if cache_plc[q][m_idx].is_shard() else flat[q]
-                    for q in cpaths])
+        xo, nc, aux = _block_body(kind, p, xl, cfg, ctx, (cos, sin), c,
+                                  mode, prefix_len, pos, cache_capacity,
+                                  plan=plan)
+        if kind != "attn" and nc is not None:    # -> stored model layout
+            flat = dict(_flat(nc))
+            nc = _unflat(cpaths, [_relayout(flat[q], body_m[q],
+                                            cache_plc[q][m_idx], plan)
+                                  for q in cpaths])
         outs = [xo, aux]
         if cpaths:
             flat = dict(_flat(nc))
@@ -594,6 +657,17 @@ def _block_sharded(kind: str, params: dict, x, cfg: ModelConfig,
     x_out, aux = outs[0], outs[1]
     new_cache = _unflat(cpaths, outs[2:]) if cpaths else None
     return x_out, new_cache, aux
+
+
+def _relayout(t: torch.Tensor, have, want, plan: MeshPlan) -> torch.Tensor:
+    """A recurrent cache leaf from the body's model-axis placement to its
+    stored one (split where the body ran whole, gathered where the
+    stored layout is whole but the body split)."""
+    if have == want:
+        return t
+    if want.is_shard():
+        return shd.split_to(t, plan.mesh, plan.model_axis, want.dim)
+    return shd.gather_from(t, plan.mesh, plan.model_axis, have.dim)
 
 
 def _mlp_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -20,24 +20,31 @@ NEG_INF = -1e30
 _Q_CHUNK = 1024
 
 
+def f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own dtype where that is wider: the
+    reference's float32 casts, through which a float64 run must not round
+    (bf16 and float32 values come out exactly as ``t.float()``)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 # --------------------------------------------------------------------------- #
 # Norms
 # --------------------------------------------------------------------------- #
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = f32(x)
     var = xf.square().mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    out = xf * torch.rsqrt(var + eps) * (1.0 + f32(scale))
     return out.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * scale.float() + bias.float()).to(x.dtype)
+    return (out * f32(scale) + f32(bias)).to(x.dtype)
 
 
 def apply_norm(x: torch.Tensor, params: dict, norm_type: str) -> torch.Tensor:
@@ -100,7 +107,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _out_dtype_ok(x, w):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+    return torch.matmul(f32(x), f32(w))
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

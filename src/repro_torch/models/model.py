@@ -34,13 +34,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import blocks
 from repro_torch.models.context import RunContext
-from repro_torch.models.layers import apply_norm, matmul_f32, rope_tables
+from repro_torch.models.layers import apply_norm, f32, matmul_f32, rope_tables
 from repro_torch.models.spec import (ParamSpec, abstract_params,
                                      init_params, logical_axes, map_specs,
                                      param_count, spec_leaves, stack_specs)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 _AUX_COEF = 0.01
 
 
@@ -99,9 +99,11 @@ def param_specs(cfg: ModelConfig) -> Dict:
     if cfg.frontend is not None:
         sp["frontend"] = {"proj": ParamSpec((d, d), ("embed", "embed_out"))}
     if cfg.dtype != "bfloat16":
+        # bf16 leaves take the model dtype; float32 leaves widen to float64
         target = dtype_of(cfg)
         sp = map_specs(lambda s: dataclasses.replace(s, dtype=target)
-                       if s.dtype == torch.bfloat16 else s, sp)
+                       if s.dtype == torch.bfloat16
+                       or target.itemsize > s.dtype.itemsize else s, sp)
     return sp
 
 
@@ -597,7 +599,7 @@ def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 # Losses
 # --------------------------------------------------------------------------- #
 def _ce(lg: torch.Tensor, tg: torch.Tensor) -> torch.Tensor:
-    lg = lg.float()
+    lg = f32(lg)
     ll = torch.take_along_dim(lg, tg.long()[..., None], dim=-1)[..., 0]
     return torch.logsumexp(lg, dim=-1) - ll
 
@@ -615,7 +617,7 @@ def _ce_vocab_sharded(logits: torch.Tensor, targets: torch.Tensor,
     dp = Shard(0) if logits.shape[0] % ctx.dp_size == 0 else Replicate()
 
     def body(lg, tg):
-        lg = lg.float()
+        lg = f32(lg)
         v_loc = lg.shape[-1]
         off = shd.axis_index(mesh, m) * v_loc
         lmax = shd.reduce_from(lg.amax(-1), mesh, m, "max")

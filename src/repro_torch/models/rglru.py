@@ -19,6 +19,11 @@ Block structure (Griffin, arXiv:2402.19427):
 
 Caches are replaced, never written in place: a step closure that an
 executor re-runs reads the same state both times.
+
+On a mesh (``tp`` = (mesh, model axis), from ``blocks._block_sharded``)
+the block holds this rank's R/M lru channels: every ``lru`` weight, the
+state and the conv carry.  The two gate products contract the whole
+width, so the conv output is all-gathered over the axis for them.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models.context import RunContext
 from repro_torch.models.layers import matmul_f32
@@ -71,11 +77,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype), xp[:, -(width - 1):]
 
 
-def _gates(xc: torch.Tensor, p: dict):
-    """Returns (a, mult*i*xc) in fp32 — the linear-recurrence coefficients."""
+def _gates(xc: torch.Tensor, p: dict, xg: Optional[torch.Tensor] = None):
+    """Returns (a, mult*i*xc) in fp32 — the linear-recurrence coefficients.
+    ``xg`` is the gate products' input (default ``xc``): on a mesh the
+    whole width gathered, where ``xc`` holds this rank's channels."""
     xf = xc.float()
-    rg = torch.sigmoid(torch.matmul(xf, p["wa"].float()) + p["ba"].float())
-    ig = torch.sigmoid(torch.matmul(xf, p["wi"].float()) + p["bi"].float())
+    xgf = xf if xg is None else xg.float()
+    rg = torch.sigmoid(torch.matmul(xgf, p["wa"].float()) + p["ba"].float())
+    ig = torch.sigmoid(torch.matmul(xgf, p["wi"].float()) + p["bi"].float())
     log_a = -_C * F.softplus(p["lam"].float()) * rg
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -95,40 +104,51 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     return torch.stack(hs, dim=1), h
 
 
-def rglru_scan_ref(xc: torch.Tensor, p: dict, h0: Optional[torch.Tensor]):
+def rglru_scan_ref(xc: torch.Tensor, p: dict, h0: Optional[torch.Tensor],
+                   xg: Optional[torch.Tensor] = None):
     """Full-sequence recurrence on the plain path. xc: (B,S,R)."""
-    a, b = _gates(xc, p)
+    a, b = _gates(xc, p, xg)
     h, h_last = linear_scan(a, b, h0)
     return h.to(xc.dtype), h_last
 
 
-def rglru_step(xc: torch.Tensor, p: dict, h0: torch.Tensor):
+def rglru_step(xc: torch.Tensor, p: dict, h0: torch.Tensor,
+               xg: Optional[torch.Tensor] = None):
     """Single decode step. xc: (B,1,R); h0: (B,R) fp32."""
-    a, b = _gates(xc, p)
+    a, b = _gates(xc, p, xg)
     h = a[:, 0] * h0 + b[:, 0]
     return h[:, None].to(xc.dtype), h
 
 
 def rglru_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                      ctx: RunContext, cache: Optional[dict], mode: str):
+                      ctx: RunContext, cache: Optional[dict], mode: str,
+                      tp=None):
     """x: (B,S,D) -> (y, new_cache). cache = {"h": (B,R) f32, "conv":
     (B,W-1,R)}.  The gelu gate takes the float32 product
     (``layers.matmul_f32``), as the reference does; ``xb`` is rounded to
-    the activation dtype."""
+    the activation dtype.  With ``tp`` every width is this rank's R/M
+    channels: ``x`` enters with f, the conv output is gathered whole for
+    the gate products (its gradient reduce-scattered back), and the
+    ``wout`` product leaves summed over the axis (g)."""
+    if tp is not None:
+        x = shd.copy_to(x, *tp)
     gate = F.gelu(matmul_f32(x, params["wy"]), approximate="tanh").to(x.dtype)
     xb = torch.matmul(x, params["wx"])
     conv_carry = cache["conv"] if cache is not None else None
     xc, new_conv = _causal_conv(xb, params["conv_w"], params["conv_b"],
                                 conv_carry)
+    xg = None if tp is None else shd.gather_from(xc, *tp, 2, partial=True)
     h0 = cache["h"] if cache is not None else None
     if mode == "decode":
-        h_seq, h_last = rglru_step(xc, params, h0)
+        h_seq, h_last = rglru_step(xc, params, h0, xg)
     elif ctx.impl == "cuda":
-        a, b = _gates(xc, params)
+        a, b = _gates(xc, params, xg)
         h_seq, h_last = ops.rglru_scan(a, b, h0=h0, out_dtype=xc.dtype)
     else:
-        h_seq, h_last = rglru_scan_ref(xc, params, h0)
+        h_seq, h_last = rglru_scan_ref(xc, params, h0, xg)
     y = torch.matmul(h_seq * gate, params["wout"])
+    if tp is not None:
+        y = shd.reduce_from(y, *tp)
     new_cache = None
     if cache is not None or mode == "prefill":
         new_cache = {"h": h_last, "conv": new_conv}

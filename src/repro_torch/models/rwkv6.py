@@ -15,6 +15,13 @@ with w_t = exp(-exp(w0 + tanh(x_w A) B)) data-dependent per channel.
 
 Caches are replaced, never written in place: a step closure that an
 executor re-runs reads the same state both times.
+
+On a mesh (``tp`` = (mesh, model axis), from ``blocks._block_sharded``)
+the time mix holds this rank's heads (``wr/wk/wv/wg`` columns, ``u``,
+the group norm and ``wo`` rows, the state's heads) and the channel mix
+its slice of d_ff; Megatron's f / g (``distributed.sharding``) mark where
+the replicated activation enters the split work and where its partial
+sums leave.
 """
 from __future__ import annotations
 
@@ -24,9 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models.context import RunContext
-from repro_torch.models.layers import matmul_f32
+from repro_torch.models.layers import f32, matmul_f32
 from repro_torch.models.spec import ParamSpec
 
 _LORA_RANK = 64
@@ -87,15 +95,15 @@ def wkv6_chunked_ref(r, k, v, w, u, s0, chunk: int = _CHUNK):
         raise ValueError(f"wkv6_chunked_ref: sequence {s} is not a multiple "
                          f"of the chunk {c}")
     m = s // c
-    rs, ks, vs, ws = (a.float().reshape(b, m, c, h, n) for a in (r, k, v, w))
+    rs, ks, vs, ws = (f32(a).reshape(b, m, c, h, n) for a in (r, k, v, w))
     lw = torch.log(torch.clamp(ws, min=1e-30))
     cum_incl = torch.cumsum(lw, dim=2)                # log prod_{1..t}
     cum_excl = cum_incl - lw                          # log prod_{1..t-1}
     total = torch.exp(cum_incl[:, :, -1])             # (B,M,H,N)
-    uf = u.float()
+    uf = f32(u)
 
     # ---- intra-chunk: scan over the C positions, vectorized over chunks ----
-    delta = torch.zeros((b, m, h, n, n), dtype=torch.float32, device=r.device)
+    delta = torch.zeros((b, m, h, n, n), dtype=rs.dtype, device=r.device)
     ys = []
     for t in range(c):
         r_t, k_t, v_t, w_t = rs[:, :, t], ks[:, :, t], vs[:, :, t], ws[:, :, t]
@@ -106,8 +114,8 @@ def wkv6_chunked_ref(r, k, v, w, u, s0, chunk: int = _CHUNK):
     y_intra = torch.stack(ys, dim=2)                  # (B,M,C,H,N)
 
     # ---- inter-chunk: propagate state across chunks (M sequential steps) ----
-    state = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
-             if s0 is None else s0.float())
+    state = (torch.zeros((b, h, n, n), dtype=rs.dtype, device=r.device)
+             if s0 is None else f32(s0))
     prefix = []
     for i in range(m):
         prefix.append(state)
@@ -122,8 +130,8 @@ def wkv6_chunked_ref(r, k, v, w, u, s0, chunk: int = _CHUNK):
 
 def wkv6_step(r, k, v, w, u, s0):
     """Single decode step. r,k,v,w: (B,1,H,N); s0: (B,H,N,N) fp32."""
-    r_, k_, v_, w_ = (a.float()[:, 0] for a in (r, k, v, w))
-    bonus = torch.einsum("bhk,hk,bhk->bh", r_, u.float(), k_)
+    r_, k_, v_, w_ = (f32(a)[:, 0] for a in (r, k, v, w))
+    bonus = torch.einsum("bhk,hk,bhk->bh", r_, f32(u), k_)
     y = torch.einsum("bhk,bhkv->bhv", r_, s0) + bonus[..., None] * v_
     s1 = w_[..., None] * s0 + k_[..., None] * v_[..., None, :]
     return y[:, None].to(r.dtype), s1
@@ -132,11 +140,11 @@ def wkv6_step(r, k, v, w, u, s0):
 def _group_norm(y: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """Per-head layer norm. y: (B,S,H,N)."""
-    f = y.float()
+    f = f32(y)
     mu = f.mean(-1, keepdim=True)
     var = (f - mu).square().mean(-1, keepdim=True)
     out = (f - mu) * torch.rsqrt(var + 1e-5)
-    return (out * scale.float() + bias.float()).to(y.dtype)
+    return (out * f32(scale) + f32(bias)).to(y.dtype)
 
 
 def _shifted(x: torch.Tensor, prev: Optional[torch.Tensor], mode: str
@@ -151,10 +159,21 @@ def _shifted(x: torch.Tensor, prev: Optional[torch.Tensor], mode: str
 
 
 def rwkv_time_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                    ctx: RunContext, cache: Optional[dict], mode: str):
-    """Time-mix. cache = {"prev": (B,D), "s": (B,H,N,N) f32}."""
+                    ctx: RunContext, cache: Optional[dict], mode: str,
+                    tp=None):
+    """Time-mix. cache = {"prev": (B,D), "s": (B,H,N,N) f32}.
+
+    With ``tp`` the head weights and the state hold this rank's H/M
+    heads: ``x`` enters with f, the decay takes the local heads' columns
+    of ``w0`` and ``wB`` (``mu`` and ``wA`` whole), and the ``wo``
+    product leaves summed over the axis (g)."""
     b, s, d = x.shape
-    h, n = cfg.n_heads, cfg.head_dim
+    h, n = params["wr"].shape[1], cfg.head_dim
+    cols = slice(None)
+    if tp is not None:
+        x = shd.copy_to(x, *tp)
+        h0 = shd.axis_index(*tp) * h
+        cols = slice(h0 * n, (h0 + h) * n)
     prev = cache["prev"] if cache is not None else None
     xp = _shifted(x, prev, mode)
     mu = params["mu"].to(x.dtype)
@@ -165,11 +184,10 @@ def rwkv_time_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                             ).reshape(b, s, h, n)
 
     r, k, v = proj(xr, "wr"), proj(xk, "wk"), proj(xv, "wv")
-    g = F.silu(proj(xg, "wg").float()).to(x.dtype)
-    lora = torch.matmul(torch.tanh(torch.matmul(xw.float(),
-                                                params["wA"].float())),
-                        params["wB"].float())
-    w = torch.exp(-torch.exp(params["w0"].float() + lora))
+    g = F.silu(f32(proj(xg, "wg"))).to(x.dtype)
+    lora = torch.matmul(torch.tanh(torch.matmul(f32(xw), f32(params["wA"]))),
+                        f32(params["wB"][:, cols]))
+    w = torch.exp(-torch.exp(f32(params["w0"][cols]) + lora))
     w = w.reshape(b, s, h, n)
 
     s0 = cache["s"] if cache is not None else None
@@ -183,6 +201,8 @@ def rwkv_time_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = _group_norm(y, params["gn_scale"], params["gn_bias"]) * g
     wo = params["wo"]
     out = torch.matmul(y.reshape(b, s, h * n), wo.reshape(h * n, d))
+    if tp is not None:
+        out = shd.reduce_from(out, *tp)
     new_cache = None
     if cache is not None or mode == "prefill":
         new_cache = {"prev": x[:, -1].float(), "s": s_new}
@@ -190,16 +210,23 @@ def rwkv_time_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def rwkv_channel_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                       cache: Optional[dict], mode: str):
-    """Channel-mix. cache = {"prev": (B,D)}."""
+                       cache: Optional[dict], mode: str, tp=None):
+    """Channel-mix. cache = {"prev": (B,D)}.  With ``tp`` ``wk`` / ``wv``
+    hold this rank's slice of d_ff: ``xk`` enters it with f and ``vv``
+    is summed over the axis (g) before the receptance gate, which runs
+    whole (``wr`` replicated)."""
     prev = cache["prev"] if cache is not None else None
     xp = _shifted(x, prev, mode)
     xk = x + (xp - x) * params["mu_k"].to(x.dtype)
     xr = x + (xp - x) * params["mu_r"].to(x.dtype)
+    if tp is not None:
+        xk = shd.copy_to(xk, *tp)
     kk = torch.square(torch.relu(matmul_f32(xk, params["wk"]))).to(x.dtype)
     vv = torch.matmul(kk, params["wv"])
+    if tp is not None:
+        vv = shd.reduce_from(vv, *tp)
     rr = torch.sigmoid(matmul_f32(xr, params["wr"]))
-    out = (rr * vv.float()).to(x.dtype)
+    out = (rr * f32(vv)).to(x.dtype)
     new_cache = None
     if cache is not None or mode == "prefill":
         new_cache = {"prev": x[:, -1].float()}

@@ -20,6 +20,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models.layers import f32
 from repro_torch.models.model import _tree_leaves, tree_map
 
 
@@ -78,8 +79,9 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [_whole(torch.sum(torch.square(g.float())))
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (float64 for float64 gradients)."""
+    sums = [_whole(torch.sum(torch.square(f32(g))))
             for g in _tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 

@@ -40,7 +40,7 @@ CASES = (("smollm-360m", "smollm-360m", None),
 # the train cases of each of two 4-rank worlds run side by side; the
 # first world also runs every other case
 PARTS = (CASES[:4], CASES[4:])
-REF_CASES = ("smollm-360m", "olmoe-1b-7b")
+REF_CASES = ("smollm-360m", "olmoe-1b-7b", "rwkv6-7b", "recurrentgemma-2b")
 # zero-sp train gradients; prefill + decode on both meshes
 ZERO_SP = (("smollm-360m", "1x4"), ("qwen2.5-3b", "2x2"))
 DECODE = ("smollm-360m", "qwen2.5-3b", "olmoe-1b-7b", "rwkv6-7b",
@@ -573,8 +573,9 @@ def test_zero_sp_gradients_match_single_device(battery, name, mesh):
 def test_prefill_and_decode_match_mesh_free(battery, name, mesh):
     """A prefill and two decode steps on the mesh (KV heads split on 2x2,
     the cache's sequence split with the partial softmaxes combined on
-    1x4; RWKV state split over heads): logits and every cache leaf within
-    1e-5 of the largest."""
+    1x4; RWKV-6's time mix computed and its state kept split over heads,
+    RG-LRU's over its channels): logits and every cache leaf within 1e-5
+    of the largest."""
     r = battery["torch"]["decode"][f"{name}@{mesh}"]
     assert r["logits"] < 1e-5 and r["cache"] < 1e-5, r
 

@@ -1,8 +1,9 @@
 """The dry-run's accounting on the CPU: one subprocess joins a fake process
 group of 4 ranks (``torch.testing``'s ``FakeStore``), traces small known
-programs and reduced-depth steps on fake tensors, then one full-size cell
-on a fake group of 256, and returns its numbers as JSON (run once per
-session, shared across xdist workers)."""
+programs and reduced-depth steps on fake tensors, the recurrent
+architectures' train steps on fake groups of 4 and of 1, then one
+full-size cell on a fake group of 256, and returns its numbers as JSON
+(run once per session, shared across xdist workers)."""
 from __future__ import annotations
 
 import fcntl
@@ -15,6 +16,7 @@ import pytest
 
 HERE = os.path.abspath(__file__)
 SRC = os.path.join(os.path.dirname(HERE), "..", "src")
+SPLIT_ARCHS = ("rwkv6-7b", "recurrentgemma-2b")
 REF_KEYS = {"arch", "shape", "mesh", "kind", "status", "n_devices",
             "n_params", "n_active_params", "lower_seconds",
             "compile_seconds", "memory", "fits_hbm", "cost_reported",
@@ -83,6 +85,17 @@ def _main(out: str) -> None:
                              get(c[1]) + 3 * (get(c[2]) - get(c[1]))]
     res["depth_memory"] = H.memory_metrics(full)
 
+    # the recurrent blocks' train steps, per device, on (1, 4) and (1, 1)
+    res["split_flops"] = {}
+    short = ShapeConfig("short", "train", 8, 4)
+    for world in (4, 1):
+        mesh_w = dryrun.fake_world(world)
+        for arch in SPLIT_ARCHS:
+            rc = configs.reduced_config(configs.get_config(arch))
+            rec = dryrun.lower_cell(rc, short, mesh_w,
+                                    steps.make_context(mesh=mesh_w))[0]
+            res["split_flops"].setdefault(arch, {})[world] = rec.flops
+
     outdir = os.path.join(os.path.dirname(out), "records")
     try:
         dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k",
@@ -148,6 +161,16 @@ def test_depth_correction_equals_full_depth(dry, key):
     k = 1 / k = 2 extrapolation equals the full-depth count exactly."""
     full, corrected = dry["depth"][key]
     assert full > 0 and corrected == full
+
+
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_recurrent_blocks_split_over_the_model_axis(dry, arch):
+    """A reduced train step traced on a fake (1, 4) mesh counts at most
+    0.4x the per-device FLOPs of the same step on one device: RWKV-6's
+    heads and d_ff, RG-LRU's channels (and the rest of the model) are
+    split, not computed whole on every model rank."""
+    f = dry["split_flops"][arch]
+    assert 0 < f["4"] <= 0.4 * f["1"], f
 
 
 def test_memory_accounting(dry):

@@ -21,12 +21,21 @@ the int8 + error-feedback mean) runs 3 steps.  Rank 0 prints one JSON
 line per case.  ``--cpu`` runs the same on a gloo group with reduced
 configurations (a check of the script itself).
 
+The float64 case starts from the float32 case's weights, widened (the
+draws are float32 either way), and runs every float32 cast of the model
+in float64 (``layers.f32``).  After it, rank 0 prints one line per
+gradient leaf: the float64 sharded step's distance from the float64
+one-device step, and the distances of both float32 steps (sharded and
+one-device) from it, each over the float64 leaf's largest entry.  A
+float32 gap that float64 closes to rounding is summation order; one that
+float64 keeps is a wrong path.
+
 Exits non-zero when a case is outside its bounds (``BOUNDS``: the mesh's
 limits of PERF.md section 2): float32 loss and grad norm within 1e-5
 relative and every gradient leaf within 2e-5 of its largest entry; bf16
 loss and grad norm within 1e-2 relative (its leaves are printed, not
-bounded: each side rounds to bf16 on its own).  Every case runs and is
-printed before the verdict.
+bounded: each side rounds to bf16 on its own); float64 within 1e-12 and
+1e-10.  Every case runs and is printed before the verdict.
 """
 import argparse
 import dataclasses
@@ -45,12 +54,15 @@ CASES = (("smollm-360m", None, "bfloat16"),
          ("smollm-360m", 4, "float32"),
          ("qwen2.5-3b", 4, "float32"),
          ("olmoe-1b-7b", 4, "float32"),
-         ("rwkv6-7b", 4, "float32"))
+         ("rwkv6-7b", 4, "float32"),
+         ("rwkv6-7b", 4, "float64"),
+         ("recurrentgemma-2b", 4, "float32"))
 MESHES = ((2, 2), (1, 4))
 BATCH, SEQ = 8, 256
 MEASURED = 3
 # dtype -> (loss and grad-norm relative bound, gradient-leaf bound or None)
-BOUNDS = {"float32": (1e-5, 2e-5), "bfloat16": (1e-2, None)}
+BOUNDS = {"float32": (1e-5, 2e-5), "bfloat16": (1e-2, None),
+          "float64": (1e-12, 1e-10)}
 
 
 def _free_port() -> int:
@@ -68,8 +80,6 @@ def _paths(tree, prefix=""):
 
 
 def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
-    import copy
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -117,6 +127,13 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
 
     adamw.update = spy_update
     failures = []
+    f32_grads = {}       # arch -> (one-device, sharded) float32 gradients
+
+    def dist_max(a, b):
+        """Each leaf's largest |a - b| over b's largest entry."""
+        return [float((x.double() - y.double()).abs().max())
+                / max(float(y.double().abs().max()), 1e-300)
+                for x, y in zip(a, b)]
 
     try:
         for shape in MESHES:
@@ -137,8 +154,10 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
                       if cfg.is_moe else {})
                 plain = S.build_train_step(cfg, opt,
                                            S.make_context(dev, **kw))
-                _, m0 = plain({"params": copy.deepcopy(params),
-                               "opt": adamw.init(params)}, batch)
+                # the step returns new parameters and leaves its input's
+                st, m0 = plain({"params": params,
+                                "opt": adamw.init(params)}, batch)
+                del st
                 g0 = stepped.pop("grads")
                 pp = shd.distribute_tree(params, S.param_shardings(cfg, mesh),
                                          mesh)
@@ -150,10 +169,23 @@ def _rank(rank: int, world: int, port: int, cpu: bool) -> None:
                 state = {"params": pp, "opt": adamw.init(pp)}
                 state, m1 = step(state, bd)
                 g1 = stepped.pop("grads")
-                errs = [float((a.float() - b.float()).abs().max())
-                        / max(float(b.float().abs().max()), 1e-30)
-                        for a, b in zip(g1, g0)]
+                errs = dist_max(g1, g0)
                 worst = max(range(len(errs)), key=errs.__getitem__)
+                if dtype == "float32" and rank == 0 and any(
+                        c[0] == arch and c[2] == "float64" for c in CASES):
+                    f32_grads[arch] = ([g.cpu() for g in g0],
+                                       [g.cpu() for g in g1])
+                if dtype == "float64" and rank == 0 and arch in f32_grads:
+                    want = [g.cpu() for g in g0]
+                    plain32, mesh32 = f32_grads.pop(arch)
+                    rows = zip(_paths(params), errs,
+                               dist_max(mesh32, want), dist_max(plain32, want))
+                    for path, e64, e_mesh, e_plain in rows:
+                        report({"mesh": "x".join(map(str, shape)),
+                                "arch": cfg.name, "leaf": path,
+                                "f64_mesh": e64, "f32_mesh": e_mesh,
+                                "f32_plain": e_plain})
+                    del want, plain32, mesh32
                 del g0, g1
                 times = []
                 for _ in range(MEASURED):
