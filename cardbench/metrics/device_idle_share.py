@@ -1,0 +1,8 @@
+"""device_idle_share: 1 - the union of the device operations' intervals
+over the traced stretch's length, in percent."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
