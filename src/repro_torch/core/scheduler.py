@@ -68,13 +68,19 @@ class ServeRequest:
     ``token_ts`` carries streamed delivery timestamps across preempt /
     restore so TPOT survives eviction, and ``retries`` counts
     Retry-After replays of a shed request.
+
+    The lifecycle stamps split the time to first token on the serving
+    timeline, and survive preemption and restore like ``token_ts``:
+    ``slot_t`` is when a slot first took the request, ``prefill_t`` when
+    the step carrying its prefill was dispatched, and ``stall_s`` sums the
+    timeline seconds of the steps it decoded through that also carried
+    other requests' prefill.
     """
 
     rid: int
     prompt: np.ndarray               # (prompt_len,) int32
     max_new_tokens: int = 16
     arrival_t: float = 0.0           # offered-load timestamp (virtual)
-    admitted_t: Optional[float] = None
     priority: int = 0
     generated: List[int] = dataclasses.field(default_factory=list)
     first_token_t: Optional[float] = None
@@ -88,6 +94,9 @@ class ServeRequest:
     # EMA — carried on the request so preemption / migration / restore
     # keep the adaptive window K where the request left off
     spec_ema: float = 1.0
+    slot_t: Optional[float] = None
+    prefill_t: Optional[float] = None
+    stall_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -96,7 +105,9 @@ class ServeCompletion:
 
     ``token_ts`` holds per-token streamed delivery times (same length as
     ``tokens``), ``cached`` marks responses served from the gateway's
-    response cache without touching the fleet."""
+    response cache without touching the fleet.  ``slot_t``, ``prefill_t``
+    and ``stall_s`` are the request's lifecycle stamps
+    (:class:`ServeRequest`); a cached reply has none."""
 
     rid: int
     tokens: List[int]
@@ -109,6 +120,9 @@ class ServeCompletion:
     deadline_s: Optional[float] = None
     token_ts: List[float] = dataclasses.field(default_factory=list)
     cached: bool = False
+    slot_t: Optional[float] = None
+    prefill_t: Optional[float] = None
+    stall_s: float = 0.0
 
     @property
     def latency_s(self) -> float:
@@ -148,12 +162,10 @@ class AdmissionQueue:
         self.rejected = 0
 
     def offer(self, req: ServeRequest, now: float) -> bool:
-        """Admit ``req`` (stamping ``admitted_t``) or shed it; returns
-        True when admitted."""
+        """Admit ``req`` or shed it; returns True when admitted."""
         if len(self._q) >= self.max_depth:
             self.rejected += 1
             return False
-        req.admitted_t = now
         self._q.append(req)
         self.accepted += 1
         return True
@@ -169,7 +181,7 @@ class AdmissionQueue:
         """Return a *preempted* request to the head of the queue.
 
         The request was already admitted once (it counted toward
-        ``accepted`` and holds its original ``admitted_t``), so it bypasses
+        ``accepted``), so it bypasses
         the depth bound — preemption must never turn into load shedding —
         and goes to the *front*: evicted work restores before any fresh
         arrival is admitted.  Among several evictions in one exhaustion

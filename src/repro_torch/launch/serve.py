@@ -88,6 +88,7 @@ from repro_torch.core.scheduler import (AdmissionQueue, FleetAutoscaler,
                                         PlacementEngine, ServeCompletion,
                                         ServeRequest, SlotLedger,
                                         poisson_arrivals)
+from repro_torch.core.trace import span
 from repro_torch.core.venues import (LINKS, Venue, kv_block_bytes,
                                      pytree_bytes, transfer_time)
 from repro_torch.kernels import ops
@@ -303,13 +304,16 @@ class LMBackend:
             logits, pcache = model.forward(cfg, params, {"tokens": toks}, ctx,
                                            "prefill",
                                            cache_capacity=nb0 * block_size)
-            flat = blk_ids.reshape(-1).long()
-            for (leaf, ax), (pre, _) in zip(model.cache_leaves(cfg, pool),
-                                            model.cache_leaves(cfg, pcache)):
-                rows = pre.reshape(pre.shape[:ax] + (j * nb0, block_size)
-                                   + pre.shape[ax + 2:])
-                leaf.movedim(ax, 0)[flat] = rows.movedim(ax, 0)
-            return torch.argmax(logits, -1).to(torch.int32), pool
+            with span("model.attn.kv"):
+                flat = blk_ids.reshape(-1).long()
+                for (leaf, ax), (pre, _) in zip(
+                        model.cache_leaves(cfg, pool),
+                        model.cache_leaves(cfg, pcache)):
+                    rows = pre.reshape(pre.shape[:ax] + (j * nb0, block_size)
+                                       + pre.shape[ax + 2:])
+                    leaf.movedim(ax, 0)[flat] = rows.movedim(ax, 0)
+            with span("model.unembed"):
+                return torch.argmax(logits, -1).to(torch.int32), pool
 
         def decode_window(params, pool, tok, pos, steps_left, tables):
             return model.decode_loop(cfg, params, pool, tok, pos, steps_left,
@@ -829,6 +833,28 @@ def _carried_ts(req: ServeRequest, n: int) -> List[float]:
     return ts + [pad] * (n - len(ts))
 
 
+def _stamp_prefill(reqs, task) -> None:
+    """Stamp ``prefill_t`` on each request whose prefill ``task`` carries,
+    unless an earlier step carried it (a restore's re-prefill keeps the
+    first)."""
+    for req in reqs:
+        if req.prefill_t is None:
+            req.prefill_t = task.submitted_at
+
+
+def _step_range(join_batch, mixed_batch, sfx_batch) -> str:
+    """The host range of an engine step, by the work it carries: a cold
+    join, suffix chunks fused into the decode window, suffix rows alone,
+    or a decode window only."""
+    if join_batch is not None:
+        return "serve.step.join"
+    if mixed_batch is not None:
+        return "serve.step.mixed"
+    if sfx_batch is not None:
+        return "serve.step.suffix"
+    return "serve.step.decode"
+
+
 class _SlotEngine:
     """A clone's decode loop: max_batch slots over one paged KV pool.
 
@@ -939,6 +965,11 @@ class _SlotEngine:
                 or bool(self.joins) or bool(self.sfx_joins)
                 or bool(self.migrations) or bool(self.disagg_joins)
                 or bool(self.submitted_disagg))
+
+    def prefill_reqs(self) -> List[ServeRequest]:
+        """The requests whose prefill the submitted step carries: cold
+        joins and suffix rows (prefix hits and restores)."""
+        return [j[1] for j in self.submitted_joins + self.submitted_sfx]
 
     def step_work(self) -> bool:
         """Work for the engine's own clone; rows parked on the disagg
@@ -1601,14 +1632,19 @@ class ClientHandler:
                          outs=[[] for _ in batch],
                          first_token_t=[0.0] * len(batch),
                          token_ts=[[] for _ in batch])
+        now = self.clock.now()
+        for r in batch:
+            if r.slot_t is None:
+                r.slot_t = now
         clone.busy = True
-        delay = (self.autoscaler.clone_ready_delay(clone, self.clock.now())
+        delay = (self.autoscaler.clone_ready_delay(clone, now)
                  + self._net_s(toks.nbytes))
         task = self.dispatcher.submit(
             clone, self.backend.prefill,
             (self.backend.params, self.backend.tensor(toks)),
             executor=self.executor, extra_delay=delay, label="prefill")
         self._charge(clone, task.venue_seconds)
+        _stamp_prefill(batch, task)
         return task, cohort
 
     def _submit_decode(self, cohort: _Cohort):
@@ -1644,7 +1680,8 @@ class ClientHandler:
                     r.rid, cohort.outs[i], r.arrival_t,
                     cohort.first_token_t[i], now, cohort.clone.spec.name,
                     tenant=r.tenant, slo=r.slo, deadline_s=r.deadline_s,
-                    token_ts=cohort.token_ts[i]))
+                    token_ts=cohort.token_ts[i], slot_t=r.slot_t,
+                    prefill_t=r.prefill_t, stall_s=r.stall_s))
                 t = cohort.clone.ctype.name
                 self.fleet_mix[t] = self.fleet_mix.get(t, 0) + 1
             else:
@@ -1789,7 +1826,10 @@ class ClientHandler:
     def _admit(self, engine: _SlotEngine, req: ServeRequest) -> None:
         """Admit through the engine and fold its prefix-cache economics
         into the counters; disagg-eligible cold prompts take a decode slot
-        and defer their prefill to the partner."""
+        and defer their prefill to the partner.  The first admission
+        stamps ``slot_t``."""
+        if req.slot_t is None:
+            req.slot_t = self.clock.now()
         st = self._clone_stat(engine.clone)
         if self._try_disagg_admit(engine, req):
             self.prompt_tokens += self.prompt_pad   # fresh eff is pad-long
@@ -1908,13 +1948,35 @@ class ClientHandler:
                     engine, self.ledger.pick_victim(safe or cands), counts)
 
     def _submit_engine_step(self, engine: _SlotEngine):
-        """One dispatched unit of engine work: full batched prefill for
-        cold joins, device block copies for CoW splits, suffix prefill for
-        prefix-hit and restored rows, then a decode window for every active
-        slot.  In-closure order matters: full prefills write the blocks the
-        same round's CoW copies read, and both precede the suffix prefill
-        that attends over them.  All block/slot bookkeeping happens here on
-        the host before submission."""
+        """Plan the engine's next step (the ``serve.schedule`` range) and
+        dispatch it."""
+        with span("serve.schedule"):
+            plan = self._plan_engine_step(engine)
+        return self._dispatch_plan(engine, plan)
+
+    def _dispatch_plan(self, engine: _SlotEngine, plan):
+        """Dispatch a planned ``(clone, step_fn, args, extra_delay, label)``
+        and charge its clone.  Every step but a speculative draft stamps
+        ``prefill_t`` on the rows it prefills (a round's verify carries
+        them)."""
+        clone, step_fn, args, delay, label = plan
+        task = self.dispatcher.submit(clone, step_fn, args,
+                                      executor=self.executor,
+                                      extra_delay=delay, label=label)
+        self._charge(clone, task.venue_seconds)
+        if label != "draft":
+            _stamp_prefill(engine.prefill_reqs(), task)
+        return task
+
+    def _plan_engine_step(self, engine: _SlotEngine):
+        """One unit of engine work: full batched prefill for cold joins,
+        device block copies for CoW splits, suffix prefill for prefix-hit
+        and restored rows, then a decode window for every active slot.
+        In-closure order matters: full prefills write the blocks the same
+        round's CoW copies read, and both precede the suffix prefill that
+        attends over them.  All block/slot bookkeeping happens here on the
+        host.  Returns ``(clone, step_fn, args, extra_delay, label)``; a
+        speculative round plans its draft (``_plan_spec_round``)."""
         kv = engine.kv
         backend = self.backend
         spec = engine.spec_on
@@ -2021,35 +2083,39 @@ class ClientHandler:
             nbytes += int(stoks.nbytes)
 
         if spec and do_decode:
-            return self._submit_spec_round(engine, counts, rows, join_batch,
-                                           cow_batch, mig_batches, sfx_batch,
-                                           sfx_steps, tables, pos, nbytes)
+            return self._plan_spec_round(
+                engine, counts, rows, join_batch, cow_batch, mig_batches,
+                sfx_batch, sfx_steps, tables, pos, nbytes)
+        step_range = _step_range(join_batch, mixed_batch, sfx_batch)
 
         def step_fn(params, pool, tok, pos, steps_left, tables):
-            for mfn, spool, sids, dids in mig_batches:
-                pool = mfn(pool, spool, sids, dids)
-            firsts = None
-            if join_batch is not None:
-                toks, blks, slots = join_batch
-                firsts, pool = prefill_into(params, toks, pool, blks, slots)
-            if cow_batch is not None:
-                copy_into, src, dst = cow_batch
-                pool = copy_into(pool, src, dst)
-            firsts_sfx = None
-            nxt = None
-            if mixed_batch is not None:
-                mw, stoks, spos, sn, stabs = mixed_batch
-                nxt, firsts_sfx, pool = mw(params, pool, tok, pos, steps_left,
-                                           tables, stoks, spos, sn, stabs)
-            else:
-                if sfx_batch is not None:
-                    pw, stoks, spos, sn, stabs = sfx_batch
-                    firsts_sfx, pool = pw(params, pool, stoks, spos, sn,
-                                          stabs)
-                if do_decode:
-                    nxt, pool = decode_window(params, pool, tok, pos,
-                                              steps_left, tables)
-            return firsts, firsts_sfx, nxt, pool
+            with span(step_range):
+                for mfn, spool, sids, dids in mig_batches:
+                    pool = mfn(pool, spool, sids, dids)
+                firsts = None
+                if join_batch is not None:
+                    toks, blks, slots = join_batch
+                    firsts, pool = prefill_into(params, toks, pool, blks,
+                                                slots)
+                if cow_batch is not None:
+                    copy_into, src, dst = cow_batch
+                    pool = copy_into(pool, src, dst)
+                firsts_sfx = None
+                nxt = None
+                if mixed_batch is not None:
+                    mw, stoks, spos, sn, stabs = mixed_batch
+                    nxt, firsts_sfx, pool = mw(params, pool, tok, pos,
+                                               steps_left, tables, stoks,
+                                               spos, sn, stabs)
+                else:
+                    if sfx_batch is not None:
+                        pw, stoks, spos, sn, stabs = sfx_batch
+                        firsts_sfx, pool = pw(params, pool, stoks, spos, sn,
+                                              stabs)
+                    if do_decode:
+                        nxt, pool = decode_window(params, pool, tok, pos,
+                                                  steps_left, tables)
+                return firsts, firsts_sfx, nxt, pool
 
         # sequential scan steps this dispatch runs — what a step-aware
         # executor bills: the batched join prefill, the CoW copy and each
@@ -2068,13 +2134,9 @@ class ClientHandler:
         delay = (self.autoscaler.clone_ready_delay(engine.clone,
                                                    self.clock.now())
                  + self._net_s(nbytes) + xfer_s)
-        task = self.dispatcher.submit(
-            engine.clone, step_fn,
-            (backend.params, kv.pool, tok, pos, steps_left, tables),
-            executor=self.executor, extra_delay=delay,
-            label="step" if do_decode else "prefill")
-        self._charge(engine.clone, task.venue_seconds)
-        return task
+        return (engine.clone, step_fn,
+                (backend.params, kv.pool, tok, pos, steps_left, tables),
+                delay, "step" if do_decode else "prefill")
 
     def _migration_batches(self, engine: _SlotEngine, migs: List[tuple]):
         """Inbound migrations as one cross-pool copy per (source pool,
@@ -2156,6 +2218,7 @@ class ClientHandler:
             executor=self.executor, extra_delay=delay,
             label="disagg_prefill")
         self._charge(engine.prefill_clone, task.venue_seconds)
+        _stamp_prefill([req for _, req, *_ in sub], task)
         engine.disagg_inflight = True
         return task
 
@@ -2199,13 +2262,14 @@ class ClientHandler:
         seq = base.tolist() + list(s.out)
         return seq[:int(engine.kv.pos[slot])]
 
-    def _submit_spec_round(self, engine: _SlotEngine, counts, rows,
-                           join_batch, cow_batch, mig_batches, sfx_batch,
-                           sfx_steps, tables, pos, nbytes):
+    def _plan_spec_round(self, engine: _SlotEngine, counts, rows,
+                         join_batch, cow_batch, mig_batches, sfx_batch,
+                         sfx_steps, tables, pos, nbytes):
         """One speculative round: stash the verify closure (carrying the
-        round's join/CoW/migration/suffix folds), then dispatch the draft
-        on the draft clone; the verify goes out when the draft completes,
-        or at once with zero drafts when every row clamped to k = 0."""
+        round's join/CoW/migration/suffix folds), then plan the draft on
+        the draft clone; the verify goes out when the draft completes, or
+        is planned at once with zero drafts when every row clamped to
+        k = 0."""
         kv = engine.kv
         backend = self.backend
         act = kv.active.astype(bool)
@@ -2215,29 +2279,32 @@ class ClientHandler:
         prefill_into = engine.prefill_into
         v_fn = backend.spec_verify_fn(kv.bs)
         params, pool0 = backend.params, kv.pool
+        step_range = _step_range(join_batch, None, sfx_batch)
 
         def verify_builder(drafts_np):
             x = np.concatenate([tok_snap[:, None],
                                 drafts_np.astype(np.int32)], axis=1)
 
             def step_fn(params, pool, toks, pos, n_live, tables):
-                for mfn, spool, sids, dids in mig_batches:
-                    pool = mfn(pool, spool, sids, dids)
-                firsts = None
-                if join_batch is not None:
-                    jtoks, blks, slots = join_batch
-                    firsts, pool = prefill_into(params, jtoks, pool, blks,
-                                                slots)
-                if cow_batch is not None:
-                    copy_into, src, dst = cow_batch
-                    pool = copy_into(pool, src, dst)
-                firsts_sfx = None
-                if sfx_batch is not None:
-                    pw, stoks, spos, sn, stabs = sfx_batch
-                    firsts_sfx, pool = pw(params, pool, stoks, spos, sn,
-                                          stabs)
-                greedy, pool = v_fn(params, pool, toks, pos, n_live, tables)
-                return firsts, firsts_sfx, greedy, pool
+                with span(step_range):
+                    for mfn, spool, sids, dids in mig_batches:
+                        pool = mfn(pool, spool, sids, dids)
+                    firsts = None
+                    if join_batch is not None:
+                        jtoks, blks, slots = join_batch
+                        firsts, pool = prefill_into(params, jtoks, pool,
+                                                    blks, slots)
+                    if cow_batch is not None:
+                        copy_into, src, dst = cow_batch
+                        pool = copy_into(pool, src, dst)
+                    firsts_sfx = None
+                    if sfx_batch is not None:
+                        pw, stoks, spos, sn, stabs = sfx_batch
+                        firsts_sfx, pool = pw(params, pool, stoks, spos, sn,
+                                              stabs)
+                    greedy, pool = v_fn(params, pool, toks, pos, n_live,
+                                        tables)
+                    return firsts, firsts_sfx, greedy, pool
 
             # the chunked verify scores every window position in one pass
             step_fn.seq_steps = (int(join_batch is not None)
@@ -2249,7 +2316,7 @@ class ClientHandler:
         engine._verify_builder = verify_builder
         engine._spec_round = k_arr
         if int(k_arr.sum()) == 0:
-            return self._submit_spec_verify(
+            return self._plan_spec_verify(
                 engine, np.zeros((kv.max_slots, engine.spec_k), np.int32),
                 np.zeros((kv.max_slots,), np.int32))
         # draft: catch-up (committed tokens the draft pool has not
@@ -2272,11 +2339,7 @@ class ClientHandler:
         delay = (self.autoscaler.clone_ready_delay(engine.draft_clone,
                                                    self.clock.now())
                  + self._net_s(int(ctoks.nbytes)))
-        task = self.dispatcher.submit(
-            engine.draft_clone, d_fn, dargs, executor=self.executor,
-            extra_delay=delay, label="draft")
-        self._charge(engine.draft_clone, task.venue_seconds)
-        return task
+        return engine.draft_clone, d_fn, dargs, delay, "draft"
 
     def _spec_draft_done(self, engine: _SlotEngine, task):
         """Fold a draft dispatch: keep the draft pool, corrupt proposals
@@ -2296,30 +2359,29 @@ class ClientHandler:
         rows = engine.decode_rows
         if rows is not None:
             engine.dpos[rows] = engine.kv.pos[rows] + k_arr[rows]
-        return self._submit_spec_verify(engine, drafts, k_arr)
+        return self._dispatch_plan(
+            engine, self._plan_spec_verify(engine, drafts, k_arr))
 
-    def _submit_spec_verify(self, engine: _SlotEngine, drafts: np.ndarray,
-                            n_spec: np.ndarray):
-        """Dispatch the stashed verify closure with the round's
-        proposals."""
+    def _plan_spec_verify(self, engine: _SlotEngine, drafts: np.ndarray,
+                          n_spec: np.ndarray):
+        """Plan the stashed verify closure with the round's proposals."""
         builder, engine._verify_builder = engine._verify_builder, None
         step_fn, args, nbytes = builder(drafts)
         engine.spec_pending = (drafts, np.asarray(n_spec, np.int32))
         delay = (self.autoscaler.clone_ready_delay(engine.clone,
                                                    self.clock.now())
                  + self._net_s(nbytes))
-        task = self.dispatcher.submit(
-            engine.clone, step_fn, args, executor=self.executor,
-            extra_delay=delay, label="step")
-        self._charge(engine.clone, task.venue_seconds)
-        return task
+        return engine.clone, step_fn, args, delay, "step"
 
     def _engine_step_done(self, engine: _SlotEngine, task,
                           completions: List[ServeCompletion]) -> bool:
-        """Fold a completed step back into host state.  True while alive."""
+        """Fold a completed step back into host state.  True while alive.
+        A step that carried prefill counts as a stall of every row it
+        decoded (``ServeRequest.stall_s``)."""
         now = self.clock.now()
         firsts, firsts_sfx, nxt, pool = task.value
         kv = engine.kv
+        carried_prefill = bool(engine.submitted_joins or engine.submitted_sfx)
         kv.pool = pool
         firsts = [] if firsts is None else firsts.cpu().numpy()
         for (slot, req, _, _), ft in zip(engine.submitted_joins, firsts):
@@ -2404,11 +2466,14 @@ class ClientHandler:
                 self._maybe_drop_speculation(engine)
             # streamed delivery stamps interpolate within the dispatch
             t0 = getattr(task, "submitted_at", now)
-            span = max(now - t0, 0.0)
+            dt = max(now - t0, 0.0)
             for slot, row, k in zip(rows, nxt[rows].tolist(), n.tolist()):
                 engine.slots[slot].out.extend(row[:k])
                 engine.slots[slot].token_ts.extend(
-                    t0 + span * (j + 1) / k for j in range(k))
+                    t0 + dt * (j + 1) / k for j in range(k))
+            if carried_prefill:
+                for slot in rows:
+                    engine.slots[slot].req.stall_s += dt
             engine.decode_rows = None
         for slot, s in enumerate(engine.slots):   # evict at step granularity
             if s is not None and len(s.out) >= s.req.max_new_tokens:
@@ -2419,7 +2484,9 @@ class ClientHandler:
                     tenant=s.req.tenant, slo=s.req.slo,
                     deadline_s=s.req.deadline_s,
                     token_ts=(s.token_ts if len(s.token_ts) == len(s.out)
-                              else [])))
+                              else []),
+                    slot_t=s.req.slot_t, prefill_t=s.req.prefill_t,
+                    stall_s=s.req.stall_s))
                 t = engine.clone.ctype.name
                 self.fleet_mix[t] = self.fleet_mix.get(t, 0) + 1
                 engine.slots[slot] = None
@@ -2586,11 +2653,11 @@ class ClientHandler:
                     self.spec_fallbacks += 1
             for eng in draft_orphans:
                 if id(eng) in engines and eng._verify_builder is not None:
-                    vt = self._submit_spec_verify(
+                    vt = self._dispatch_plan(eng, self._plan_spec_verify(
                         eng,
                         np.zeros((eng.kv.max_slots, max(eng.spec_k, 1)),
                                  np.int32),
-                        np.zeros((eng.kv.max_slots,), np.int32))
+                        np.zeros((eng.kv.max_slots,), np.int32)))
                     inflight[vt] = eng
             # a dead partner degrades its engines to co-located prefill:
             # rows riding the dead prefill requeue (no token emitted yet),
@@ -2703,109 +2770,116 @@ class ClientHandler:
         while True:
             now = self.clock.now()
             self._band_cache.clear()
-            while i < len(reqs) and reqs[i].arrival_t <= now + 1e-12:
+            # the round's admission: due arrivals into the queue, queued
+            # requests into free slots of running engines
+            with span("serve.admit"):
+                while i < len(reqs) and reqs[i].arrival_t <= now + 1e-12:
+                    if gw is not None:
+                        gw.offer(reqs[i], now)
+                    else:
+                        self.queue.offer(reqs[i], now)
+                    i += 1
+                if self.injector is not None:
+                    # before joins and spawns consult the engine set
+                    self._recover_failed(inflight, engines)
                 if gw is not None:
-                    gw.offer(reqs[i], now)
-                else:
-                    self.queue.offer(reqs[i], now)
-                i += 1
-            if self.injector is not None:
-                # before joins and spawns consult the engine set
-                self._recover_failed(inflight, engines)
-            if gw is not None:
-                # fleet census after recovery: dead and open-breaker
-                # clones shrink the gateway's admission envelope
-                healthy = sum(1 for c in self.pool.clones if c.serveable)
-                gw.observe_fleet(healthy, len(self.pool.clones),
-                                 self.max_batch * max(healthy, 1))
-                while notified < len(completions):
-                    gw.observe_completion(completions[notified])
-                    notified += 1
-                gw.release(now, self.queue,
-                           self.queue.max_depth - self.queue.depth)
-                completions.extend(gw.drain_cached())
-            self._peak_queue_depth = max(
-                self._peak_queue_depth,
-                self.queue.depth + (gw.queued if gw is not None else 0))
+                    # fleet census after recovery: dead and open-breaker
+                    # clones shrink the gateway's admission envelope
+                    healthy = sum(1 for c in self.pool.clones if c.serveable)
+                    gw.observe_fleet(healthy, len(self.pool.clones),
+                                     self.max_batch * max(healthy, 1))
+                    while notified < len(completions):
+                        gw.observe_completion(completions[notified])
+                        notified += 1
+                    gw.release(now, self.queue,
+                               self.queue.max_depth - self.queue.depth)
+                    completions.extend(gw.drain_cached())
+                self._peak_queue_depth = max(
+                    self._peak_queue_depth,
+                    self.queue.depth + (gw.queued if gw is not None else 0))
+                if paged and engines:
+                    for key, eng in engines.items():
+                        self.ledger.update(key, eng.kv.free_slots)
+                    # admit via on_assign so each fits() check sees the block
+                    # allocations of earlier assignments in the same round;
+                    # affinity routing prefers engines by cached-prefix depth,
+                    # random is its control arm
+                    prefer = None
+                    if self.routing == "affinity":
+                        prefer = (lambda key, r:
+                                  float(self._affinity_depth(engines[key].kv,
+                                                             r)))
+                    elif self.routing == "random":
+                        prefer = lambda key, r: float(self._route_rng.random())
+                    self.ledger.assign(
+                        self.queue,
+                        fits=lambda key, r: self._fits_slot(engines[key], r),
+                        on_assign=lambda key, r: self._admit(engines[key], r),
+                        prefer=prefer)
             if paged and engines:
-                for key, eng in engines.items():
-                    self.ledger.update(key, eng.kv.free_slots)
-                # admit via on_assign so each fits() check sees the block
-                # allocations of earlier assignments in the same round;
-                # affinity routing prefers engines by cached-prefix depth,
-                # random is its control arm
-                prefer = None
-                if self.routing == "affinity":
-                    prefer = (lambda key, r:
-                              float(self._affinity_depth(engines[key].kv,
-                                                         r)))
-                elif self.routing == "random":
-                    prefer = lambda key, r: float(self._route_rng.random())
-                self.ledger.assign(
-                    self.queue,
-                    fits=lambda key, r: self._fits_slot(engines[key], r),
-                    on_assign=lambda key, r: self._admit(engines[key], r),
-                    prefer=prefer)
                 for eng in engines.values():
                     self._pump(eng, inflight)
-            self.autoscaler.step(now, self._demand_buckets(),
-                                 self._in_flight_by_type(inflight))
-            while self.queue.depth > 0:
-                # first queued request some free clone can serve
-                picked = clone = None
-                for r in self.queue.snapshot():
-                    lo, hi = self._placement_band(r)
-                    pc = (self._best_affinity_cid(r)
-                          if self.routing == "affinity" else None)
-                    clone = self._free_clone(lo, hi, prefer_cid=pc)
-                    if clone is not None:
-                        picked = r
+            # placement: queued requests onto free clones (a new engine's
+            # or cohort's first step is dispatched inside the range)
+            with span("serve.admit"):
+                self.autoscaler.step(now, self._demand_buckets(),
+                                     self._in_flight_by_type(inflight))
+                while self.queue.depth > 0:
+                    # first queued request some free clone can serve
+                    picked = clone = None
+                    for r in self.queue.snapshot():
+                        lo, hi = self._placement_band(r)
+                        pc = (self._best_affinity_cid(r)
+                              if self.routing == "affinity" else None)
+                        clone = self._free_clone(lo, hi, prefer_cid=pc)
+                        if clone is not None:
+                            picked = r
+                            break
+                    if clone is None:
                         break
-                if clone is None:
-                    break
-                if not paged:
-                    # the cohort seeds with the picked request and fills
-                    # with band-compatible requests in FIFO order
-                    batch = []
-                    while len(batch) < self.max_batch:
-                        req = self.queue.take_where(
-                            lambda r: r is picked or self._in_band(r,
-                                                                   clone))
+                    if not paged:
+                        # the cohort seeds with the picked request and fills
+                        # with band-compatible requests in FIFO order
+                        batch = []
+                        while len(batch) < self.max_batch:
+                            req = self.queue.take_where(
+                                lambda r: r is picked or self._in_band(r,
+                                                                       clone))
+                            if req is None:
+                                break
+                            batch.append(req)
+                        task, cohort = self._start_cohort(batch, clone)
+                        inflight[task] = cohort
+                        self._band_cache.clear()
+                        continue
+                    engine = self._start_engine(clone)
+
+                    def fill(r, picked=picked, engine=engine):
+                        if r is picked:
+                            return engine.kv.can_admit(
+                                _SlotEngine.effective_prompt(
+                                    r, self.prompt_pad, self.backend.capacity),
+                                r.max_new_tokens)
+                        return self._fits_slot(engine, r)
+
+                    n = 0
+                    while n < self.max_batch and self.queue.depth > 0:
+                        req = self.queue.take_where(fill)
                         if req is None:
                             break
-                        batch.append(req)
-                    task, cohort = self._start_cohort(batch, clone)
-                    inflight[task] = cohort
+                        self._admit(engine, req)
+                        n += 1
+                    if n == 0:
+                        raise RuntimeError(
+                            "KV block pool too small to hold one request's "
+                            "prompt even when empty — preemption has no "
+                            f"victim (num_blocks={engine.kv.num_blocks}, "
+                            f"prompt_pad={self.prompt_pad}, "
+                            f"block_size={self.block_size})")
+                    engines[id(engine)] = engine
+                    self.ledger.update(id(engine), engine.kv.free_slots)
+                    self._pump(engine, inflight)
                     self._band_cache.clear()
-                    continue
-                engine = self._start_engine(clone)
-
-                def fill(r, picked=picked, engine=engine):
-                    if r is picked:
-                        return engine.kv.can_admit(
-                            _SlotEngine.effective_prompt(
-                                r, self.prompt_pad, self.backend.capacity),
-                            r.max_new_tokens)
-                    return self._fits_slot(engine, r)
-
-                n = 0
-                while n < self.max_batch and self.queue.depth > 0:
-                    req = self.queue.take_where(fill)
-                    if req is None:
-                        break
-                    self._admit(engine, req)
-                    n += 1
-                if n == 0:
-                    raise RuntimeError(
-                        "KV block pool too small to hold one request's "
-                        "prompt even when empty — preemption has no "
-                        f"victim (num_blocks={engine.kv.num_blocks}, "
-                        f"prompt_pad={self.prompt_pad}, "
-                        f"block_size={self.block_size})")
-                engines[id(engine)] = engine
-                self.ledger.update(id(engine), engine.kv.free_slots)
-                self._pump(engine, inflight)
-                self._band_cache.clear()
 
             if inflight:
                 # bound the wait so arrivals are admitted on time and a
@@ -2850,7 +2924,10 @@ class ClientHandler:
                         self._pump(unit, inflight)
                         continue
                     unit.main_inflight = False
-                    if self._engine_step_done(unit, task, completions):
+                    with span("serve.harvest"):
+                        alive = self._engine_step_done(unit, task,
+                                                       completions)
+                    if alive:
                         self._pump(unit, inflight)
                     else:
                         engines.pop(id(unit), None)

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.trace import span
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import moe, rglru, rwkv6
@@ -150,15 +151,16 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         return _attn_sharded(params, x, cfg, rope, cache, mode, prefix_len,
                              pos, cache_capacity, plan)
     cos, sin = rope
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
-    if cfg.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    with span("model.attn.qkv"):
+        q = _proj(x, params["wq"])
+        k = _proj(x, params["wk"])
+        v = _proj(x, params["wv"])
+        if cfg.qkv_bias:
+            q = q + params["bq"].to(x.dtype)
+            k = k + params["bk"].to(x.dtype)
+            v = v + params["bv"].to(x.dtype)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     softcap = cfg.logit_softcap
     use_kernels = ctx.impl == "cuda"
 
@@ -173,15 +175,17 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         cap = ck.shape[1]
         pos = int(pos)
         k_pos = None
-        if cfg.window is not None and cap == cfg.window:
-            slot = pos % cap
-            k_pos = _ring_positions(pos, cap, x.device)
-        else:
-            slot = min(pos, cap - 1)
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
-        out = attention_xla(q, ck, cv, causal=True, window=cfg.window,
-                            softcap=softcap, q_offset=pos, k_pos=k_pos)
+        with span("model.attn.kv"):
+            if cfg.window is not None and cap == cfg.window:
+                slot = pos % cap
+                k_pos = _ring_positions(pos, cap, x.device)
+            else:
+                slot = min(pos, cap - 1)
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+        with span("model.attn.core"):
+            out = attention_xla(q, ck, cv, causal=True, window=cfg.window,
+                                softcap=softcap, q_offset=pos, k_pos=k_pos)
         new_cache = cache
     elif mode == "decode":
         # Paged decode: the cache leaves are (N, bs, Hkv, D) block pools
@@ -190,23 +194,27 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         # table row, so their writes land in block 0 (the trash block);
         # several rows may write there — harmless, never read unmasked.
         ck, cv = cache["k"], cache["v"]
-        bsz = x.shape[0]
-        rows = torch.arange(bsz, device=x.device)
-        # the reference's gather clamps an out-of-range column; torch would
-        # raise (CPU) or device-assert (CUDA), so clamp explicitly
-        col = torch.clamp(pos // block_size, max=block_tables.shape[1] - 1)
-        blk = block_tables[rows, col.long()].long()
-        off = (pos % block_size).long()
-        ck[blk, off] = k[:, 0]
-        cv[blk, off] = v[:, 0]
-        if use_kernels:
-            out = ops.paged_attention(q, ck, cv, block_tables,
-                                      (pos + 1).to(torch.int32),
-                                      softcap=softcap, fused=ctx.paged_fused)
-        else:
-            out = attention_xla(q, _gather(ck, block_tables),
-                                _gather(cv, block_tables), causal=True,
-                                softcap=softcap, q_offset=pos)
+        with span("model.attn.kv"):
+            bsz = x.shape[0]
+            rows = torch.arange(bsz, device=x.device)
+            # the reference's gather clamps an out-of-range column; torch
+            # would raise (CPU) or device-assert (CUDA), so clamp explicitly
+            col = torch.clamp(pos // block_size,
+                              max=block_tables.shape[1] - 1)
+            blk = block_tables[rows, col.long()].long()
+            off = (pos % block_size).long()
+            ck[blk, off] = k[:, 0]
+            cv[blk, off] = v[:, 0]
+        with span("model.attn.core"):
+            if use_kernels:
+                out = ops.paged_attention(q, ck, cv, block_tables,
+                                          (pos + 1).to(torch.int32),
+                                          softcap=softcap,
+                                          fused=ctx.paged_fused)
+            else:
+                out = attention_xla(q, _gather(ck, block_tables),
+                                    _gather(cv, block_tables), causal=True,
+                                    softcap=softcap, q_offset=pos)
         new_cache = cache
     elif mode == "chunk":
         # Chunked paged prefill: row i carries a C-token chunk of its
@@ -217,45 +225,52 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         # writes whose order the device would not define.
         pos0, n_live = pos
         ck, cv = cache["k"], cache["v"]
-        csz = x.shape[1]
-        cap = cache_capacity
-        cidx = torch.arange(csz, device=x.device)
-        cpos = pos0[:, None] + cidx[None, :]                  # (B, C)
-        live = cidx[None, :] < n_live[:, None]
-        wpos = torch.clamp(cpos, max=cap - 1)
-        writer = live & ((cpos < cap - 1)
-                         | (cidx[None, :] == n_live[:, None] - 1))
-        blk_col = torch.clamp(wpos // block_size,
-                              max=block_tables.shape[1] - 1)
-        blk = torch.where(writer,
-                          torch.take_along_dim(block_tables, blk_col.long(),
-                                               dim=1), 0).long()
-        off = torch.where(writer, wpos % block_size, 0).long()
-        ck[blk, off] = k
-        cv[blk, off] = v
-        if use_kernels:
-            out = ops.paged_prefill(q, ck, cv, block_tables, pos0, n_live,
-                                    softcap=softcap)
-        else:
-            out = attention_xla(q, _gather(ck, block_tables),
-                                _gather(cv, block_tables), causal=True,
-                                softcap=softcap, q_offset=pos0)
+        with span("model.attn.kv"):
+            csz = x.shape[1]
+            cap = cache_capacity
+            cidx = torch.arange(csz, device=x.device)
+            cpos = pos0[:, None] + cidx[None, :]                  # (B, C)
+            live = cidx[None, :] < n_live[:, None]
+            wpos = torch.clamp(cpos, max=cap - 1)
+            writer = live & ((cpos < cap - 1)
+                             | (cidx[None, :] == n_live[:, None] - 1))
+            blk_col = torch.clamp(wpos // block_size,
+                                  max=block_tables.shape[1] - 1)
+            blk = torch.where(writer,
+                              torch.take_along_dim(block_tables,
+                                                   blk_col.long(), dim=1),
+                              0).long()
+            off = torch.where(writer, wpos % block_size, 0).long()
+            ck[blk, off] = k
+            cv[blk, off] = v
+        with span("model.attn.core"):
+            if use_kernels:
+                out = ops.paged_prefill(q, ck, cv, block_tables, pos0,
+                                        n_live, softcap=softcap)
+            else:
+                out = attention_xla(q, _gather(ck, block_tables),
+                                    _gather(cv, block_tables), causal=True,
+                                    softcap=softcap, q_offset=pos0)
         new_cache = cache
     else:
         # prefill and train: the whole sequence at once; the kernel takes
         # causal attention without an image prefix, as in the reference
-        if use_kernels and cfg.causal and prefix_len == 0:
-            out = ops.flash_attention(q, k, v, causal=True,
-                                      window=cfg.window, softcap=softcap)
-        else:
-            out = attention_xla(q, k, v, causal=cfg.causal, window=cfg.window,
-                                prefix_len=prefix_len, softcap=softcap)
+        with span("model.attn.core"):
+            if use_kernels and cfg.causal and prefix_len == 0:
+                out = ops.flash_attention(q, k, v, causal=True,
+                                          window=cfg.window, softcap=softcap)
+            else:
+                out = attention_xla(q, k, v, causal=cfg.causal,
+                                    window=cfg.window, prefix_len=prefix_len,
+                                    softcap=softcap)
         if mode == "prefill":
-            new_cache = _prefill_cache(k, v, cfg, cache_capacity)
-    b, s = out.shape[:2]
-    wo = params["wo"]
-    out = torch.matmul(out.reshape(b, s, -1).to(x.dtype),
-                       wo.reshape(-1, wo.shape[-1]))
+            with span("model.attn.kv"):
+                new_cache = _prefill_cache(k, v, cfg, cache_capacity)
+    with span("model.attn.out"):
+        b, s = out.shape[:2]
+        wo = params["wo"]
+        out = torch.matmul(out.reshape(b, s, -1).to(x.dtype),
+                           wo.reshape(-1, wo.shape[-1]))
     return out, new_cache
 
 
@@ -310,37 +325,42 @@ def _block_body(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
                 block_tables=None, block_size: int = 0,
                 plan: Optional["MeshPlan"] = None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = apply_norm(x, params["norm1"], cfg.norm_type)
     tp = plan.tp if plan is not None and plan.rec else None
     if kind == "attn":
+        with span("model.attn.qkv"):
+            h = apply_norm(x, params["norm1"], cfg.norm_type)
         mix, new_cache = attn_apply(params["attn"], h, cfg, ctx, rope, cache,
                                     mode, prefix_len, pos, cache_capacity,
                                     block_tables, block_size, plan=plan)
     elif kind == "rglru":
+        h = apply_norm(x, params["norm1"], cfg.norm_type)
         mix, new_cache = rglru.rglru_block_apply(params["rec"], h, cfg, ctx,
                                                  cache, mode, tp)
     elif kind == "rwkv":
+        h = apply_norm(x, params["norm1"], cfg.norm_type)
         mix, tm_cache = rwkv6.rwkv_time_apply(
             params["tm"], h, cfg, ctx,
             cache["tm"] if cache is not None else None, mode, tp)
     else:
         raise ValueError(kind)
-    x = x + mix
-    h2 = apply_norm(x, params["norm2"], cfg.norm_type)
-    if kind == "rwkv":
-        ffn, cm_cache = rwkv6.rwkv_channel_apply(
-            params["cm"], h2, cfg,
-            cache["cm"] if cache is not None else None, mode,
-            plan.tp if plan is not None and _ffn_split(cfg, plan) else None)
-        new_cache = ({"tm": tm_cache, "cm": cm_cache}
-                     if tm_cache is not None else None)
-    elif kind == "attn" and cfg.is_moe:
-        ffn, aux = moe.moe_apply(params["ffn"], h2, cfg, ctx, plan=plan)
-    elif plan is not None:
-        ffn = _mlp_sharded(params["ffn"], h2, cfg, plan)
-    else:
-        ffn = mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
-    return x + ffn, new_cache, aux
+    with span("model.mlp"):
+        x = x + mix
+        h2 = apply_norm(x, params["norm2"], cfg.norm_type)
+        if kind == "rwkv":
+            ffn, cm_cache = rwkv6.rwkv_channel_apply(
+                params["cm"], h2, cfg,
+                cache["cm"] if cache is not None else None, mode,
+                plan.tp if plan is not None and _ffn_split(cfg, plan)
+                else None)
+            new_cache = ({"tm": tm_cache, "cm": cm_cache}
+                         if tm_cache is not None else None)
+        elif kind == "attn" and cfg.is_moe:
+            ffn, aux = moe.moe_apply(params["ffn"], h2, cfg, ctx, plan=plan)
+        elif plan is not None:
+            ffn = _mlp_sharded(params["ffn"], h2, cfg, plan)
+        else:
+            ffn = mlp(params["ffn"], h2, cfg.mlp_act, cfg.mlp_gated)
+        return x + ffn, new_cache, aux
 
 
 def block_cache_axes(cfg: ModelConfig, kind: str):

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.trace import span
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import blocks
 from repro_torch.models.context import RunContext
@@ -585,13 +586,15 @@ def apply_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     aux = _zero(x, ctx)
     stack = _unbind(params["layers"]["stack"]) if n_groups else {}
     for g in range(n_groups):
-        x, a = group(g)(x)
-        aux = aux + a
+        with span("model.layer"):
+            x, a = group(g)(x)
+            aux = aux + a
     for j, kind in enumerate(rest):
         key = f"r{j}"
-        x, a = run(kind, params["layers"]["rest"][key],
-                   None if cache is None else cache["rest"][key], x)
-        aux = aux + a
+        with span("model.layer"):
+            x, a = run(kind, params["layers"]["rest"][key],
+                       None if cache is None else cache["rest"][key], x)
+            aux = aux + a
     return x, per_layer, aux
 
 
@@ -696,16 +699,18 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict, ctx: RunContext,
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
-    x, positions, prefix_len = embed_inputs(cfg, params, batch, ctx)
-    seq_ax = ctx.model_axis if (ctx.mesh is not None and ctx.zero_sp) \
-        else None
-    x = constrain(x, ctx, seq_ax, None)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    with span("model.embed"):
+        x, positions, prefix_len = embed_inputs(cfg, params, batch, ctx)
+        seq_ax = ctx.model_axis if (ctx.mesh is not None and ctx.zero_sp) \
+            else None
+        x = constrain(x, ctx, seq_ax, None)
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x, per_layer, aux = apply_stack(cfg, params, x, ctx, rope, None, mode,
                                     prefix_len, None, cache_capacity)
     if mode == "prefill":
-        x = constrain(x, ctx, None, None)
-        logits = unembed(cfg, params, x[:, -1:], ctx)
+        with span("model.unembed"):
+            x = constrain(x, ctx, None, None)
+            logits = unembed(cfg, params, x[:, -1:], ctx)
         return logits[:, 0], _stack_caches(cfg, per_layer)
     logits = unembed(cfg, params, x, ctx)
     if cfg.frontend == "vision":
@@ -727,21 +732,23 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     row onto a paged KV block pool.  K/V are written into the cache in
     place; recurrent state leaves are replaced.  Returns (logits (B, V),
     cache)."""
-    x = embed_tokens(cfg, params, tokens, ctx)
-    if block_tables is None:
-        pos = int(pos)
-        rows = 1 if ctx.mesh is not None else x.shape[0]
-        positions = torch.full((rows, 1), pos, device=x.device)
-    else:
-        positions = pos[:, None]
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    with span("model.embed"):
+        x = embed_tokens(cfg, params, tokens, ctx)
+        if block_tables is None:
+            pos = int(pos)
+            rows = 1 if ctx.mesh is not None else x.shape[0]
+            positions = torch.full((rows, 1), pos, device=x.device)
+        else:
+            positions = pos[:, None]
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x, per_layer, _ = apply_stack(cfg, params, x, ctx, rope, cache,
                                   "decode", 0, pos,
                                   block_tables=block_tables,
                                   block_size=block_size)
     if has_state_rows(cfg):
         cache = _stack_caches(cfg, per_layer, kv_from=cache)
-    return unembed(cfg, params, x, ctx)[:, 0], cache
+    with span("model.unembed"):
+        return unembed(cfg, params, x, ctx)[:, 0], cache
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -767,17 +774,20 @@ def decode_loop(cfg: ModelConfig, params: Dict, cache: Dict,
     cur = _i32(pos)
     outs = []
     for t in range(num_steps):
-        live = t < steps_left
-        eff_tables = torch.where(live[:, None], tables, 0)
-        eff_pos = torch.where(live, torch.clamp(cur, max=capacity - 1), 0)
+        with span("model.embed"):
+            live = t < steps_left
+            eff_tables = torch.where(live[:, None], tables, 0)
+            eff_pos = torch.where(live, torch.clamp(cur, max=capacity - 1),
+                                  0)
         logits, cache = decode_step(cfg, params, cache, tok[:, None],
                                     _i32(eff_pos), ctx,
                                     block_tables=_i32(eff_tables),
                                     block_size=block_size)
-        nxt = _i32(torch.argmax(logits, -1))
-        tok = torch.where(live, nxt, tok)
-        cur = torch.where(live, torch.clamp(cur + 1, max=capacity), cur)
-        outs.append(tok)
+        with span("model.unembed"):
+            nxt = _i32(torch.argmax(logits, -1))
+            tok = torch.where(live, nxt, tok)
+            cur = torch.where(live, torch.clamp(cur + 1, max=capacity), cur)
+            outs.append(tok)
     return torch.stack(outs, dim=1), cache
 
 
@@ -798,16 +808,18 @@ def prefill_loop(cfg: ModelConfig, params: Dict, cache: Dict,
     toks = _i32(tokens)
     first = torch.zeros_like(n_tokens)
     for t in range(num_steps):
-        live = t < n_tokens
-        eff_tables = torch.where(live[:, None], tables, 0)
-        eff_pos = torch.where(live, torch.clamp(pos0 + t, max=capacity - 1),
-                              0)
+        with span("model.embed"):
+            live = t < n_tokens
+            eff_tables = torch.where(live[:, None], tables, 0)
+            eff_pos = torch.where(
+                live, torch.clamp(pos0 + t, max=capacity - 1), 0)
         logits, cache = decode_step(cfg, params, cache, toks[:, t:t + 1],
                                     _i32(eff_pos), ctx,
                                     block_tables=_i32(eff_tables),
                                     block_size=block_size)
-        nxt = _i32(torch.argmax(logits, -1))
-        first = torch.where(t == n_tokens - 1, nxt, first)
+        with span("model.unembed"):
+            nxt = _i32(torch.argmax(logits, -1))
+            first = torch.where(t == n_tokens - 1, nxt, first)
     return first, cache
 
 
@@ -824,19 +836,22 @@ def chunk_step(cfg: ModelConfig, params: Dict, cache: Dict,
     """One C-token chunk of suffix prefill per row in one model pass.
     Returns (logits after each row's last live token (B, V), cache);
     rows with n_live == 0 yield garbage the caller masks out."""
-    x = embed_tokens(cfg, params, tokens)
-    c = x.shape[1]
-    pos0 = _i32(pos0)
-    n_live = _i32(n_live)
-    positions = torch.clamp(pos0[:, None] + torch.arange(c, device=x.device),
-                            max=capacity - 1)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    with span("model.embed"):
+        x = embed_tokens(cfg, params, tokens)
+        c = x.shape[1]
+        pos0 = _i32(pos0)
+        n_live = _i32(n_live)
+        positions = torch.clamp(
+            pos0[:, None] + torch.arange(c, device=x.device),
+            max=capacity - 1)
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x, _, _ = apply_stack(cfg, params, x, ctx, rope, cache, "chunk", 0,
                           (pos0, n_live), capacity, _i32(block_tables),
                           block_size)
-    idx = torch.clamp(n_live - 1, 0, c - 1).long()
-    x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-    return unembed(cfg, params, x_last)[:, 0], cache
+    with span("model.unembed"):
+        idx = torch.clamp(n_live - 1, 0, c - 1).long()
+        x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        return unembed(cfg, params, x_last)[:, 0], cache
 
 
 def _pad_cols(toks: torch.Tensor, width: int) -> torch.Tensor:
@@ -861,15 +876,17 @@ def prefill_chunks(cfg: ModelConfig, params: Dict, cache: Dict,
     first = torch.zeros_like(n_tokens)
     for t in range(num_steps):
         base = t * chunk
-        n_live = torch.clamp(n_tokens - base, 0, chunk)
-        eff_tables = torch.where((n_live > 0)[:, None], tables, 0)
+        with span("model.embed"):
+            n_live = torch.clamp(n_tokens - base, 0, chunk)
+            eff_tables = torch.where((n_live > 0)[:, None], tables, 0)
         logits, cache = chunk_step(cfg, params, cache,
                                    toks[:, base:base + chunk], pos0 + base,
                                    n_live, ctx, block_tables=eff_tables,
                                    block_size=block_size, capacity=capacity)
-        nxt = _i32(torch.argmax(logits, -1))
-        done_here = (n_tokens > base) & (n_tokens <= base + chunk)
-        first = torch.where(done_here, nxt, first)
+        with span("model.unembed"):
+            nxt = _i32(torch.argmax(logits, -1))
+            done_here = (n_tokens > base) & (n_tokens <= base + chunk)
+            first = torch.where(done_here, nxt, first)
     return first, cache
 
 
@@ -895,28 +912,33 @@ def mixed_loop(cfg: ModelConfig, params: Dict, cache: Dict,
     outs = []
     for t in range(num_steps):
         base = t * chunk
-        n_live = torch.clamp(sfx_n - base, 0, chunk)
-        eff_stables = torch.where((n_live > 0)[:, None], stables, 0)
+        with span("model.embed"):
+            n_live = torch.clamp(sfx_n - base, 0, chunk)
+            eff_stables = torch.where((n_live > 0)[:, None], stables, 0)
         logits_c, cache = chunk_step(cfg, params, cache,
                                      stoks[:, base:base + chunk],
                                      sfx_pos0 + base, n_live, ctx,
                                      block_tables=eff_stables,
                                      block_size=block_size,
                                      capacity=capacity)
-        nxt_c = _i32(torch.argmax(logits_c, -1))
-        done_here = (sfx_n > base) & (sfx_n <= base + chunk)
-        first = torch.where(done_here, nxt_c, first)
-        live = t < steps_left
-        eff_tables = torch.where(live[:, None], tables, 0)
-        eff_pos = torch.where(live, torch.clamp(cur, max=capacity - 1), 0)
+        with span("model.unembed"):
+            nxt_c = _i32(torch.argmax(logits_c, -1))
+            done_here = (sfx_n > base) & (sfx_n <= base + chunk)
+            first = torch.where(done_here, nxt_c, first)
+        with span("model.embed"):
+            live = t < steps_left
+            eff_tables = torch.where(live[:, None], tables, 0)
+            eff_pos = torch.where(live, torch.clamp(cur, max=capacity - 1),
+                                  0)
         logits, cache = decode_step(cfg, params, cache, tok[:, None],
                                     _i32(eff_pos), ctx,
                                     block_tables=_i32(eff_tables),
                                     block_size=block_size)
-        nxt = _i32(torch.argmax(logits, -1))
-        tok = torch.where(live, nxt, tok)
-        cur = torch.where(live, torch.clamp(cur + 1, max=capacity), cur)
-        outs.append(tok)
+        with span("model.unembed"):
+            nxt = _i32(torch.argmax(logits, -1))
+            tok = torch.where(live, nxt, tok)
+            cur = torch.where(live, torch.clamp(cur + 1, max=capacity), cur)
+            outs.append(tok)
     return torch.stack(outs, dim=1), first, cache
 
 
